@@ -1,0 +1,137 @@
+"""The execution-backend protocol for KVI programs (the port's copy of
+``repro.kvi.backend``).
+
+The unit of execution is a :class:`~repro_torch.kvi.workload.KviWorkload`
+— a batch of (program, hart-assignment, data-instance) entries executed
+by ``run_workload()``, which returns a
+:class:`~repro_torch.kvi.workload.WorkloadResult`. The single-program
+``run()`` wraps the program into a one-entry workload.
+
+The port keeps its own registry: ``get_backend("torch")`` builds the
+:class:`~repro_torch.kvi.torch_backend.TorchBackend`. Nothing here is
+shared with, or registered in, the reference package.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import (TYPE_CHECKING, Callable, Dict, Optional, Protocol,
+                    runtime_checkable)
+
+import numpy as np
+
+from repro_torch.kvi.ir import KviProgram
+
+if TYPE_CHECKING:                      # pragma: no cover - typing only
+    from repro_torch.kvi.workload import KviWorkload, WorkloadResult
+
+
+@dataclass
+class BackendResult:
+    """What one backend run produced.
+
+    outputs — every ``mem_out`` buffer of the program, by name, reshaped
+              to its declared shape.
+    timing  — scheme name -> cycle result (timing backends only; none in
+              the port yet).
+    backend — the producing backend's registered name.
+    """
+
+    backend: str
+    outputs: Dict[str, np.ndarray]
+    timing: Optional[Dict[str, "object"]] = None
+
+    @property
+    def cycles(self) -> Optional[Dict[str, int]]:
+        if self.timing is None:
+            return None
+        return {k: v.cycles for k, v in self.timing.items()}
+
+
+@runtime_checkable
+class Backend(Protocol):
+    """Anything that can execute KVI work. ``run_workload`` is the
+    primary protocol method; ``run`` is the single-program convenience."""
+
+    name: str
+
+    def run(self, program: KviProgram) -> BackendResult:
+        ...
+
+    def run_workload(self, workload: "KviWorkload") -> "WorkloadResult":
+        ...
+
+
+class BackendBase:
+    """Shared backend behavior: ``run()`` is a thin wrapper over
+    ``run_workload()`` on a one-entry workload, and
+    ``optimize_workload()`` applies the optimizing pass pipeline
+    (``repro_torch.kvi.passes``) that ``run_workload()`` calls first.
+
+    ``self.passes`` selects the pipeline: ``None`` (the default) runs
+    the full ``copy_prop -> dce -> fuse_regions`` pipeline, ``()``
+    disables optimization entirely, and a sequence of pass names or
+    callables runs a custom pipeline.
+
+    ``verify=True`` asks for the reference's static analyzer in front of
+    execution. The port has not copied the analyzer yet, so it raises
+    ``NotImplementedError`` rather than running unverified.
+    """
+
+    passes = None                    # None => default pipeline; () => off
+    verify = False                   # True => refused (no analyzer yet)
+
+    def run(self, program: KviProgram) -> BackendResult:
+        from repro_torch.kvi.workload import KviWorkload
+        return self.run_workload(KviWorkload.single(program)).entry_result(0)
+
+    def optimize_workload(self, workload: "KviWorkload",
+                          verify: Optional[bool] = None) -> "KviWorkload":
+        """The optimized workload this backend actually executes. Each
+        distinct program object is optimized once; pipelines that change
+        nothing hand back the identical workload object."""
+        if self.verify if verify is None else verify:
+            raise NotImplementedError(
+                "verify=True needs the static analyzer (repro.kvi.analysis),"
+                " which the port has not copied yet")
+        from repro_torch.kvi.passes import PassPipeline
+        pipe = PassPipeline.from_spec(getattr(self, "passes", None))
+        if not pipe:
+            return workload
+        return workload.map_programs(pipe.run)
+
+
+_REGISTRY: Dict[str, Callable[..., Backend]] = {}
+
+
+def register_backend(name: str):
+    """Class decorator registering a backend factory under ``name``."""
+
+    def deco(cls):
+        cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+
+    return deco
+
+
+def get_backend(name: str, **kwargs) -> Backend:
+    """Instantiate a registered backend (kwargs forwarded to the ctor)."""
+    _ensure_builtin_backends()
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown backend {name!r}; available: "
+                       f"{sorted(_REGISTRY)}") from None
+    return factory(**kwargs)
+
+
+def available_backends() -> Dict[str, Callable[..., Backend]]:
+    _ensure_builtin_backends()
+    return dict(_REGISTRY)
+
+
+def _ensure_builtin_backends():
+    """Import the built-in backend module so its ``@register_backend``
+    decorator runs. An import error propagates: a backend that fails to
+    import is a fault, not an absent option."""
+    from repro_torch.kvi import torch_backend  # noqa: F401  (registers)
