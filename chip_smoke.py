@@ -6,20 +6,31 @@
 Needs one CUDA card, ``nvcc`` and this checkout (``src/repro_torch``);
 imports nothing of JAX or of the reference package ``repro``. Phases:
 
-1. build  — compile both CUDA sources of ``src/repro_torch/csrc/`` for
-   sm_90a, one ``nvcc`` per source, in parallel;
-2. check  — each kernel against its plain PyTorch version on the same
-   CUDA tensors at the main path's shapes, bit for bit for integers;
-3. slice  — the KVI main path at the paper's sizes through
+1. build   — compile the six CUDA sources of ``src/repro_torch/csrc/``
+   for sm_90a, one ``nvcc`` per source, in parallel;
+2. check   — each kernel against its plain PyTorch version on the same
+   CUDA tensors: slice 1's at the KVI path's shapes, bit for bit; the
+   four compute kernels at odd shapes (no dimension a multiple of a
+   tile), integers bit for bit, floats within error bounds; then TF32
+   products (cuBLAS with TF32 allowed), which the float32 matmul check
+   must reject;
+3. slice 1 — the KVI main path at the paper's sizes through
    ``get_backend("torch").run_workload``: conv2d 32x32 (F = 3 and 11),
    FFT-256, streamed matmul 64x64 (kdotp and kdotpps), pipeline_demo and
    the composite conv / FFT / matmul workload on 3 harts; outputs held
    bit for bit against numpy formulas and against the CPU backend on the
-   first 4 instances; the kernels' launch counters must show both kernels
-   ran;
-4. time   — each kernel at a main-path shape with CUDA events, beside its
-   plain version, its bound and (where one exists) a PyTorch library
-   call computing the same function.
+   first 4 instances; the launch counters must show both kernels ran;
+4. slice 2 — the paper's compute kernels at card scale through the
+   intrinsics layer ``repro_torch.kernels.ops`` (matmul bf16 / int8 /
+   f32, conv2d int32 F = 3 and 11 and f32, FFT 16384 x 256 and
+   4096 x 1024, the het-MIMD composite at the paper's size and at 1024),
+   each output held against its plain version on the same tensors and
+   against an independent numpy formula (int64 sums, float64 products
+   and FFTs); the launch counters must show one launch per call;
+5. time    — each kernel at main-path shapes with ``torch.profiler`` and
+   CUDA events, beside its plain version, its bound and (where one
+   exists) a PyTorch library call computing the same function; for the
+   compute kernels every workload of phase 4.
 
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers and
@@ -37,16 +48,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
-INT32_OPS_PER_S = 67e12          # 32-bit peak outside the tensor cores
 N_CHECK = 4                      # instances re-run on the CPU backend
-
-
-def _card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+FORMULA_ROWS = 16                # matmul rows checked against numpy, each end
 
 
 # ---------------------------------------------------------------------------
@@ -210,13 +213,15 @@ def device_time_ms(fn, *args):
     trace holds no device time (the profiler may not see the card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.micro import device_us
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         result = fn(*args)
         torch.cuda.synchronize()
     by = {"fused_vops": 0.0, "kdotp": 0.0, "memcpy": 0.0, "other": 0.0}
     for ev in prof.key_averages():
-        us = _device_us(ev)
+        us = device_us(ev)
         if not us:
             continue
         kind = ("fused_vops" if "fused_vops_kernel" in ev.key else
@@ -275,66 +280,153 @@ def run_slice(device, rng, scale=1, log=print):
 
 
 # ---------------------------------------------------------------------------
-# kernel timing
+# slice 2: the paper's compute kernels, and their independent numpy formulas
 # ---------------------------------------------------------------------------
 
-def _timed(fn, reps: int, match=None) -> dict:
-    """Two times per call of ``fn`` after a warm-up: ``call_ms`` from
-    CUDA events around ``reps`` back-to-back calls (what a caller pays;
-    host-bound when the host enqueues slower than the card runs), and
-    ``device_ms`` from a ``torch.profiler`` trace of ``reps`` more calls:
-    the device time of events whose name contains ``match`` (every
-    device event when None), or None when the trace holds no device
-    time."""
+def _np(t):
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    call_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(ev) for ev in prof.key_averages()
-             if match is None or match in ev.key)
-    return dict(call_ms=call_ms, device_ms=us / 1e3 / reps or None)
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
-def _device_us(ev) -> float:
-    """Device time of one averaged profiler event: counted on the device
-    events themselves (kernels, memcpy, memset) only — a CPU op reports
-    its kernels' time as well, which would count them twice."""
-    if (not str(ev.device_type).endswith("CUDA")
-            or getattr(ev, "is_user_annotation", False)):
+def _within(name, got, want, tol) -> float:
+    err = np.abs(got.astype(np.float64) - want)
+    if not np.all(err <= tol):
+        raise AssertionError(f"{name}: differs from the numpy formula by "
+                             f"up to {err.max()} (allowed {np.min(tol)} "
+                             f"and up)")
+    return float(err.max()) if err.size else 0.0
+
+
+def _np_correlate(padded, filt):
+    """Valid correlation in float64, or exact in int64 for integers."""
+    F = filt.shape[0]
+    H, W = padded.shape[0] - F + 1, padded.shape[1] - F + 1
+    wide = np.int64 if padded.dtype.kind == "i" else np.float64
+    acc = np.zeros((H, W), wide)
+    for fr in range(F):
+        for fc in range(F):
+            acc += padded[fr:fr + H, fc:fc + W].astype(wide) \
+                * wide(filt[fr, fc])
+    return acc
+
+
+def _formula_matmul(name, got, a, b, bf16_out):
+    """The first and last ``FORMULA_ROWS`` rows: int8 as an int64 sum
+    wrapped to int32, exactly; floats against the float64 product,
+    within the probabilistic bound of one float32 sum
+    (``checks.dot_tolerance``) plus one bf16 step of the output's
+    rounding."""
+    import torch
+    from repro_torch.kernels.checks import dot_tolerance
+    a, b, got = _np(a), _np(b), _np(got)
+    M, K = a.shape
+    rows = np.unique(np.r_[0:min(FORMULA_ROWS, M),
+                           max(0, M - FORMULA_ROWS):M])
+    if a.dtype == np.int8:
+        want = (a[rows].astype(np.int64) @ b.astype(np.int64)).astype(
+            np.int32)
+        if not np.array_equal(got[rows], want):
+            raise AssertionError(f"{name}: differs from the int64 sum")
         return 0.0
-    return getattr(ev, "self_device_time_total",
-                   getattr(ev, "self_cuda_time_total", 0.0))
+    a64, b64 = a[rows].astype(np.float64), b.astype(np.float64)
+    want = a64 @ b64
+    tol = dot_tolerance(torch.from_numpy(a64), torch.from_numpy(b64),
+                        sums=1).numpy()
+    if bf16_out:
+        tol = tol + 2.0 ** -7 * np.abs(want)
+    return _within(name, got[rows], want, tol)
 
 
-def _times(kernel: dict, plain: dict, library=None) -> dict:
-    """The JSON's times: the kernel's device time (its call time when
-    the profiler sees no device time), the plain version's and the
-    library call's likewise, each beside its call time."""
-    out = dict(ms=kernel["device_ms"] or kernel["call_ms"],
-               ms_source="profiler" if kernel["device_ms"] else "events",
-               call_ms=kernel["call_ms"],
-               plain_ms=plain["device_ms"] or plain["call_ms"],
-               plain_call_ms=plain["call_ms"], library_ms=None,
-               library_call_ms=None)
-    if library is not None:
-        out.update(library_ms=library["device_ms"] or library["call_ms"],
-                   library_call_ms=library["call_ms"])
-    return out
+def _formula_conv(name, got, img, filt, shift, pad):
+    """int32: the int64 sum wrapped to int32, then shifted, exactly;
+    floats: the float64 sum within gamma(F^2) of the absolute terms."""
+    from repro_torch.kernels.checks import gamma
+    img, filt, got = _np(img), _np(filt), _np(got)
+    F = filt.shape[0]
+    lo = F // 2 if pad else 0
+    hi = F - 1 - F // 2 if pad else 0
+    padded = np.pad(img, ((lo, hi), (lo, hi)))
+    acc = _np_correlate(padded, filt)
+    if img.dtype == np.int32:
+        want = acc.astype(np.int32) >> (shift if 0 <= shift <= 31 else 31)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: differs from the int64 sum")
+        return 0.0
+    tol = gamma(F * F) * _np_correlate(np.abs(padded), np.abs(filt))
+    return _within(name, got, acc, tol)
 
+
+def _formula_fft(name, got_re, got_im, re, im):
+    """numpy's float64 FFT, within the reference test's tolerance
+    (rtol 1e-3, atol 1e-3 n)."""
+    want = np.fft.fft(_np(re).astype(np.float64)
+                      + 1j * _np(im).astype(np.float64), axis=-1)
+    n = want.shape[-1]
+    return max(_within(f"{name} re", _np(got_re), want.real,
+                       1e-3 * n + 1e-3 * np.abs(want.real)),
+               _within(f"{name} im", _np(got_im), want.imag,
+                       1e-3 * n + 1e-3 * np.abs(want.imag)))
+
+
+def formula_check(w, x, out) -> float:
+    """The workload's output against a numpy formula that shares no code
+    with the kernel or its plain version; the largest absolute
+    difference."""
+    import torch
+    if w.kernel == "spm_matmul":
+        return _formula_matmul(w.name, out, x["a"], x["b"],
+                               out.dtype == torch.bfloat16)
+    if w.kernel == "spm_conv2d":
+        return _formula_conv(w.name, out, x["img"], x["filt"], x["shift"],
+                             pad=True)
+    if w.kernel == "spm_fft":
+        return _formula_fft(w.name, *out, x["re"], x["im"])
+    conv, ore, oim, mm = out
+    return max(_formula_conv(f"{w.name} conv", conv, x["img"], x["filt"],
+                             0, pad=False),
+               _formula_fft(f"{w.name} fft", ore, oim, x["fre"], x["fim"]),
+               _formula_matmul(f"{w.name} matmul", mm, x["A"], x["B"],
+                               False))
+
+
+def run_compute_slice(device, rng, workloads, log=print):
+    """Phase 4: every compute workload once through the intrinsics layer
+    on ``device``, with the four kernels' launch counters set to 0 just
+    before and read just after; then each output against its plain
+    version and its numpy formula. On the card each call must be one
+    launch of its kernel. Returns ``(inputs by name, launches, largest
+    difference from the plain version by kernel)``."""
+    import torch
+    from repro_torch.kernels import micro
+    inputs = {w.name: micro.make_inputs(w, rng, device) for w in workloads}
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    for mod in micro.MODULES.values():
+        mod.launch_count = 0
+    outs = {w.name: micro.run_kernel(w, inputs[w.name]) for w in workloads}
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: mod.launch_count for k, mod in micro.MODULES.items()}
+    calls = {k: sum(w.kernel == k for w in workloads) for k in micro.MODULES}
+    if torch.device(device).type == "cuda" and launches != calls:
+        raise AssertionError(f"launches {launches} are not one per call "
+                             f"{calls}")
+    err = dict.fromkeys(micro.MODULES, 0.0)
+    for w in workloads:
+        x, out = inputs[w.name], outs.pop(w.name)
+        e_plain = micro.compare_plain(w, x, out)
+        e_formula = formula_check(w, x, out)
+        err[w.kernel] = max(err[w.kernel], e_plain)
+        log(f"[slice2] {w.name}: {w.use}; {json.dumps(w.shape)}; equals "
+            f"its plain version (max abs diff {e_plain}) and its numpy "
+            f"formula (max abs diff {e_formula})")
+        del out
+    return inputs, launches, err
+
+
+# ---------------------------------------------------------------------------
+# kernel timing
+# ---------------------------------------------------------------------------
 
 def time_fused(rng, device):
     """fused_vops on the first region of conv2d 32x32 F = 3 (the
@@ -342,6 +434,7 @@ def time_fused(rng, device):
     import torch
     from repro_torch.kernels import fused_vops as fv
     from repro_torch.kernels.checks import random_ints
+    from repro_torch.kernels.micro import timed, times
     from repro_torch.kvi import get_backend
     progs, _ = conv_instances(rng, 1)
     walk = get_backend("torch", device=device)._compile(progs[0])
@@ -352,9 +445,9 @@ def time_fused(rng, device):
                              [s for _, s in region.outputs],
                              region.n_slots, torch.device(device))
     before = fv.launch_count
-    t = _times(_timed(lambda: fv.fused_vops(record, win, rf, rf), 200,
-                      "fused_vops_kernel"),
-               _timed(lambda: fv.fused_vops_plain(record, win, rf, rf), 10))
+    t = times(timed(lambda: fv.fused_vops(record, win, rf, rf), 200,
+                    "fused_vops_kernel"),
+              timed(lambda: fv.fused_vops_plain(record, win, rf, rf), 10))
     fv.launch_count = before          # timing launches are not the path's
     n_io = len(region.inputs) + len(region.outputs)
     return dict(t, bytes=n_io * N * region.length * 4
@@ -373,18 +466,19 @@ def time_kdotp(rng, device):
     import torch
     from repro_torch.kernels import kdotp as kd
     from repro_torch.kernels.checks import random_ints
+    from repro_torch.kernels.micro import timed, times
     N, n = 128, 64
     rf = random_ints(rng, (N, 3 * n + 1), torch.int32, device)
     a, b, out = rf[:, :n], rf[:, n:2 * n], rf[:, 3 * n]
     before = kd.launch_count
-    t = _times(_timed(lambda: kd.reduce_rows(out, a, b), 500,
-                      "reduce_rows_kernel"),
-               _timed(lambda: kd.reduce_rows_plain(out, a, b), 50))
+    t = times(timed(lambda: kd.reduce_rows(out, a, b), 500,
+                    "reduce_rows_kernel"),
+              timed(lambda: kd.reduce_rows_plain(out, a, b), 50))
     x = a.contiguous()
-    red = _times(_timed(lambda: kd.reduce_rows(out, a), 500,
-                        "reduce_rows_kernel"),
-                 _timed(lambda: kd.reduce_rows_plain(out, a), 50),
-                 _timed(lambda: torch.sum(x, dim=1, dtype=torch.int64), 500))
+    red = times(timed(lambda: kd.reduce_rows(out, a), 500,
+                      "reduce_rows_kernel"),
+                timed(lambda: kd.reduce_rows_plain(out, a), 50),
+                timed(lambda: torch.sum(x, dim=1, dtype=torch.int64), 500))
     got = torch.empty(N, dtype=torch.int32, device=device)
     kd.reduce_rows(got, a)
     if not torch.equal(got, torch.sum(a, dim=1, dtype=torch.int64).to(
@@ -398,9 +492,10 @@ def time_kdotp(rng, device):
 
 
 def _bound(t):
-    t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = t["ops"] / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Slice 1's kernels run 32-bit integer operations."""
+    from repro_torch.kernels.micro import bound
+    b = bound(t["bytes"], [(t["ops"], "int32")])
+    return b["bound_ms"], b["bound_by"]
 
 
 # ---------------------------------------------------------------------------
@@ -419,12 +514,13 @@ def main(argv=None) -> int:
               f"the repository checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build, checks
+    from repro_torch.kernels import build, checks, micro
     from repro_torch.kernels import fused_vops as fv
     from repro_torch.kernels import kdotp as kd
 
     device = torch.device("cuda", torch.cuda.current_device())
-    card = _card_line()
+    micro.card_settings()
+    card = micro.card_line()
     t0 = time.perf_counter()
 
     # 1. build -------------------------------------------------------------
@@ -469,11 +565,21 @@ def main(argv=None) -> int:
                 rng, torch.float32, device=device, post=kd.POST_SHIFT,
                 scalar=3, mode=kd.WRAP32, **shape))
     checks.check_overflow_kdotpps(device)
+    odd = dict.fromkeys(micro.MODULES, 0.0)
+    for k, shape in checks.compute_kernel_cases():
+        odd[k] = max(odd[k], checks.check_compute_case(rng, k, shape,
+                                                       device))
     torch.cuda.synchronize()
     print(f"[check] kernels equal their plain versions on the card: "
-          f"max abs err {err}")
+          f"max abs err {err}; compute kernels at odd shapes {odd}")
+    controls = []
+    for M, K, N in TF32_CONTROLS:
+        a, b = checks.matmul_operands(rng, M, K, N, torch.float32, device)
+        controls.append(checks.reject_tf32(checks.tf32_product(a, b), a, b))
+    print(f"[check] the float32 matmul check rejects TF32 products "
+          f"(cuBLAS, TF32 allowed): {json.dumps(controls)}; card: {card}")
 
-    # 3. the slice on the card ---------------------------------------------
+    # 3. slice 1 on the card -----------------------------------------------
     fv.launch_count = 0
     kd.launch_count = 0
     _, records = run_slice(device, rng,
@@ -490,27 +596,45 @@ def main(argv=None) -> int:
           f"profiled runs): "
           f"{launches}; card: {card}")
 
-    # 4. kernel times --------------------------------------------------------
+    # 4. slice 2 on the card -----------------------------------------------
+    inputs, launches2, err2 = run_compute_slice(
+        device, rng, micro.CARD, log=lambda m: print(f"{m}; card: {card}"))
+    launches.update(launches2)
+    for k in err2:
+        err[k] = max(err2[k], odd[k])
+    print(f"[slice2] launches over the compute path (one per call): "
+          f"{launches2}; card: {card}")
+
+    # 5. kernel times --------------------------------------------------------
     times = {"fused_vops": time_fused(rng, device),
              "kdotp": time_kdotp(rng, device)}
+    for name, t in times.items():
+        t["bound_ms"], t["bound_by"] = _bound(t)
+    by_kernel = {k: {} for k in micro.MODULES}
+    for w in micro.CARD:
+        t = micro.time_workload(w, inputs.pop(w.name))
+        by_kernel[w.kernel][w.name] = t
+        print(f"[time] {w.name}: {json.dumps(t)}; card: {card}")
+        torch.cuda.empty_cache()
+    for k, ws in by_kernel.items():
+        times[k] = dict(ws[SHOWN[k]], shape=SHOWN[k], workloads={
+            name: {key: t[key] for key in (
+                "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")} for name, t in ws.items()})
     kernels = []
-    for name, source, replaces in (
-            ("fused_vops", "src/repro_torch/csrc/fused_vops.cu",
-             "src/repro/kvi/pallas_backend.py:134"),
-            ("kdotp", "src/repro_torch/csrc/kdotp.cu",
-             "src/repro/kernels/kdotp.py:21")):
+    for name, source, replaces in KERNELS:
         t = times[name]
-        bound_ms, bound_by = _bound(t)
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
                  "max_abs_err": err[name], "ms": t["ms"],
-                 "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": t["library_ms"]}
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
         entry.update({k: t[k] for k in ("ms_source", "call_ms",
                                         "plain_call_ms", "library_call_ms",
                                         "shape")})
-        if "kvred" in t:
-            entry["kvred"] = t["kvred"]
+        for extra in ("kvred", "workloads"):
+            if extra in t:
+                entry[extra] = t[extra]
         kernels.append(entry)
         print(f"[time] {name} {t['shape']}: {json.dumps(entry)}; "
               f"card: {card}")
@@ -521,6 +645,31 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+#: (kernel, source, the TPU kernel it replaces), in the order of the JSON
+KERNELS = (
+    ("fused_vops", "src/repro_torch/csrc/fused_vops.cu",
+     "src/repro/kvi/pallas_backend.py:134"),
+    ("kdotp", "src/repro_torch/csrc/kdotp.cu",
+     "src/repro/kernels/kdotp.py:21"),
+    ("spm_matmul", "src/repro_torch/csrc/spm_matmul.cu",
+     "src/repro/kernels/spm_matmul.py:22"),
+    ("spm_conv2d", "src/repro_torch/csrc/spm_conv2d.cu",
+     "src/repro/kernels/spm_conv2d.py:25"),
+    ("spm_fft", "src/repro_torch/csrc/spm_fft.cu",
+     "src/repro/kernels/spm_fft.py:29"),
+    ("het_mimd", "src/repro_torch/csrc/het_mimd.cu",
+     "src/repro/kernels/het_mimd.py:25"),
+)
+#: float32 matmul shapes (M, K, N) of the TF32 controls: odd, the paper
+#: composite's, composite_1024's and matmul_f32_2048's
+TF32_CONTROLS = ((33, 65, 17), (64, 64, 64), (1024, 1024, 1024),
+                 (2048, 2048, 2048))
+#: the workload whose numbers stand in a compute kernel's JSON entry
+#: (every workload's are under "workloads")
+SHOWN = {"spm_matmul": "matmul_bf16_4096", "spm_conv2d": "conv_int32_2048_f3",
+         "spm_fft": "fft_16384x256", "het_mimd": "composite_1024"}
 
 
 if __name__ == "__main__":

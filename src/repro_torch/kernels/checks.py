@@ -4,9 +4,25 @@ the card tests (``tests/test_torch_cuda.py``).
 Each check builds random operands with numpy from a seed, runs the
 kernel's wrapper and its plain PyTorch version on the same tensors of
 one device, and raises ``AssertionError`` unless the two agree — bit for
-bit for integers, within the stated tolerance for float32. On a CPU
+bit for integers, within the stated tolerance for floats. On a CPU
 device both sides are the plain version, which is how the CPU tests keep
-these helpers themselves honest.
+these helpers themselves honest. The ``compare_*`` helpers hold an
+output the caller already has (a main-path run's) against the plain
+version on the same inputs.
+
+Float tolerances are error bounds, not fitted numbers. A float32 sum of
+k terms lies within ``gamma(k) * sum(|terms|)`` of the exact sum
+(``gamma(k) = k u / (1 - k u)``, u = 2^-24), whatever the order, so two
+sums in different orders lie within twice that; conv2d (k = F^2) is held
+to it. For a matmul that worst case grows as K u and would pass a TF32
+product at K in the thousands, so products are held to a probabilistic
+bound instead (:func:`dot_tolerance`). A bf16 output adds up to one bf16
+step (2^-7 relative) between two roundings. An FFT stage adds at most
+~4 u times the row's L1 norm (which bounds every intermediate), so
+log2(n) stages in two implementations stay within ``8 log2(n) u L1``.
+conv2d and the FFT round every operation as their plain versions do, so
+on the card they are expected to agree exactly; the bound is what is
+enforced, and the returned maximum shows the rest.
 """
 from __future__ import annotations
 
@@ -15,11 +31,18 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import kdotp as kd
 from repro_torch.kernels import fused_vops as fv
+from repro_torch.kernels import het_mimd as hm
+from repro_torch.kernels import kdotp as kd
+from repro_torch.kernels import spm_conv2d as sc
+from repro_torch.kernels import spm_fft as sf
+from repro_torch.kernels import spm_matmul as sm
 
 _NP = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32,
        torch.float32: np.float32}
+U32 = 2.0 ** -24                   # float32 unit roundoff
+BF16_STEP = 2.0 ** -7              # bf16 spacing relative to the value
+LAMBDA = 4.0                       # standard deviations of one sum's error
 
 
 def random_ints(rng: np.random.Generator, shape, dtype: torch.dtype,
@@ -165,3 +188,286 @@ def main_path_cases() -> Sequence[Tuple[str, dict]]:
             ("fused fft256 tail", dict(rows=1024, n=1)),
             ("fused pipeline_demo", dict(rows=1024, n=1024)),
             ("kdotp matmul64", dict(rows=128, n=64)))
+
+
+# ---------------------------------------------------------------------------
+# the paper's compute kernels (spm_matmul, spm_conv2d, spm_fft, het_mimd)
+# ---------------------------------------------------------------------------
+
+def gamma(k: int) -> float:
+    """The float32 error factor of a sum of ``k`` terms."""
+    return k * U32 / (1 - k * U32)
+
+
+def require_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                  atol) -> float:
+    """Raise unless ``|got - want| <= atol`` everywhere (``atol`` a number
+    or a tensor broadcast against ``got``); return the largest
+    absolute difference."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: got {got.dtype} {tuple(got.shape)}, "
+                             f"want {want.dtype} {tuple(want.shape)}")
+    err = (got.double() - want.double()).abs()
+    bad = ~(err <= atol)
+    if bool(bad.any()):
+        raise AssertionError(f"{name} differs from its plain version by up "
+                             f"to {err.max().item()} at "
+                             f"{bad.nonzero()[:5].tolist()}")
+    return err.max().item() if err.numel() else 0.0
+
+
+def _no_tf32(device) -> None:
+    if torch.device(device).type == "cuda" and \
+            torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: float32 products would not be "
+                             "the function the kernels compute")
+
+
+def random_floats(rng: np.random.Generator, shape, dtype: torch.dtype,
+                  device) -> torch.Tensor:
+    """Standard normal values, rounded to ``dtype``, on ``device``."""
+    return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)
+                            ).to(device=device, dtype=dtype)
+
+
+def matmul_operands(rng, M, K, N, dtype, device):
+    if dtype == torch.int8:
+        return (random_ints(rng, (M, K), dtype, device),
+                random_ints(rng, (K, N), dtype, device))
+    return (random_floats(rng, (M, K), dtype, device),
+            random_floats(rng, (K, N), dtype, device))
+
+
+def dot_tolerance(a: torch.Tensor, b: torch.Tensor, sums: int = 2
+                  ) -> torch.Tensor:
+    """``[M, N]`` float64: ``sums * LAMBDA * u * sqrt(K (K + 1) / 2) *
+    |t_ij|``, where ``|t_ij|`` is the 2-norm of the K products ``a[i, k]
+    b[k, j]``: the distance allowed between ``sums`` float32 sums of them
+    (2: two float32 implementations; 1: one against the exact sum).
+
+    Taking rounding errors as independent (Higham and Mary's
+    probabilistic model), one sum lies within ``LAMBDA u sqrt(sum_k
+    s_k^2)`` of the exact sum with probability at least ``1 - 2
+    exp(-LAMBDA^2 / 2)``, s_k its partial sums; Cauchy-Schwarz bounds
+    |s_k| by ``sqrt(k) |t_ij|``. Random data keeps |s_k| near ``|t_ij|
+    sqrt(k / K)``, so an FP32 sum stays far inside. A TF32 product
+    (inputs rounded to 11 significant bits) errs with a standard
+    deviation of about ``0.8 2^-11 |t_ij|``, some 1100 / K times this
+    bound: at the K of the checks (at most 2048 in float32) part of its
+    entries fall outside, as the TF32 controls (:func:`reject_tf32`)
+    show."""
+    K = a.shape[1]
+    t = ((a.double() ** 2) @ (b.double() ** 2)).sqrt()
+    return sums * LAMBDA * U32 * (K * (K + 1) / 2) ** 0.5 * t
+
+
+def matmul_tolerance(a, b, want) -> torch.Tensor:
+    """:func:`dot_tolerance` for two implementations, plus one bf16 step
+    for a bf16 output."""
+    tol = dot_tolerance(a, b)
+    if want.dtype == torch.bfloat16:
+        tol = tol + BF16_STEP * want.double().abs()
+    return tol
+
+
+def compare_matmul(got, a, b, out_dtype=None) -> float:
+    """``got`` (an ``spm_matmul`` output) against the plain version:
+    int8 bit for bit; floats within :func:`matmul_tolerance`."""
+    want = sm.spm_matmul_plain(a, b, out_dtype=out_dtype)
+    if a.dtype == torch.int8:
+        return _require_equal("spm_matmul", got, want)
+    _no_tf32(a.device)
+    return require_close("spm_matmul", got, want,
+                         matmul_tolerance(a, b, want))
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a @ b`` in TF32, the control of :func:`reject_tf32`: on
+    the card cuBLAS with TF32 allowed for this call; on the CPU, which
+    has no TF32, the inputs rounded to TF32 (11 significant bits, to
+    nearest) and multiplied exactly."""
+    if a.device.type == "cuda":
+        flag = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return torch.matmul(a, b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = flag
+
+    def tf32(x):
+        bits = x.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return (tf32(a).double() @ tf32(b).double()).float()
+
+
+def reject_tf32(got, a, b) -> dict:
+    """A control for :func:`compare_matmul`: ``got`` is float32 ``a @ b``
+    computed in TF32. Raise unless the check rejects it; return how far
+    it is outside (largest error, the tolerance there, the largest
+    error-to-tolerance ratio and the share of entries outside)."""
+    want = sm.spm_matmul_plain(a, b)
+    tol = matmul_tolerance(a, b, want)
+    err = (got.double() - want.double()).abs()
+    ratio = err / tol
+    out = dict(shape=[a.shape[0], a.shape[1], b.shape[1]],
+               max_abs_err=err.max().item(),
+               tol_at_max=tol.flatten()[err.argmax()].item(),
+               max_err_over_tol=ratio.max().item(),
+               share_outside=(ratio > 1).double().mean().item())
+    try:
+        compare_matmul(got, a, b)
+    except AssertionError:
+        return out
+    raise AssertionError(f"the float32 matmul check passes a TF32 "
+                         f"product: {out}")
+
+
+def check_matmul(rng, M, K, N, dtype, device, out_dtype=None) -> float:
+    a, b = matmul_operands(rng, M, K, N, dtype, device)
+    return compare_matmul(sm.spm_matmul(a, b, out_dtype=out_dtype), a, b,
+                          out_dtype)
+
+
+def conv_operands(rng, H, W, F, dtype, device):
+    """int32: |img| < 2^20, |filt| < 2^10, so sums overflow int32 from
+    F = 3 on; floats: standard normal."""
+    if dtype == torch.int32:
+        img = rng.integers(-(1 << 20), 1 << 20, (H, W))
+        filt = rng.integers(-(1 << 10), 1 << 10, (F, F))
+        return (torch.from_numpy(img.astype(np.int32)).to(device),
+                torch.from_numpy(filt.astype(np.int32)).to(device))
+    return (random_floats(rng, (H, W), dtype, device),
+            random_floats(rng, (F, F), torch.float32, device))
+
+
+def _conv_tolerance(padded, filt, want) -> torch.Tensor:
+    F = filt.shape[0]
+    tol = 2 * gamma(F * F) * sc.correlate_plain(
+        padded.abs().float(), filt.abs().float()).double()
+    if want.dtype == torch.bfloat16:
+        tol = tol + BF16_STEP * want.double().abs()
+    return tol
+
+
+def compare_conv(got, img, filt, shift=0) -> float:
+    """``got`` (an ``spm_conv2d`` output) against the plain version:
+    int32 bit for bit; floats within ``2 gamma(F^2)`` of the sum of
+    absolute terms (plus one bf16 step for bf16)."""
+    want = sc.spm_conv2d_plain(img, filt, shift=shift)
+    if img.dtype == torch.int32:
+        return _require_equal("spm_conv2d", got, want)
+    F = filt.shape[0]
+    pad = F // 2
+    padded = torch.nn.functional.pad(img, (pad, F - 1 - pad, pad,
+                                           F - 1 - pad))
+    return require_close("spm_conv2d", got, want,
+                         _conv_tolerance(padded, filt, want))
+
+
+def check_conv(rng, H, W, F, dtype, device, shift=0) -> float:
+    img, filt = conv_operands(rng, H, W, F, dtype, device)
+    return compare_conv(sc.spm_conv2d(img, filt, shift=shift), img, filt,
+                        shift)
+
+
+def _fft_tolerance(re, im) -> torch.Tensor:
+    stages = max(re.shape[1].bit_length() - 1, 1)
+    l1 = (re.double().abs() + im.double().abs()).sum(dim=1, keepdim=True)
+    return 8 * stages * U32 * l1
+
+
+def compare_fft(got_re, got_im, re, im) -> float:
+    """``spm_fft`` outputs against the plain version on the same
+    twiddles, within ``8 log2(n) u`` times each row's L1 norm."""
+    want_re, want_im = sf.spm_fft_plain(re, im)
+    tol = _fft_tolerance(re, im)
+    return max(require_close("spm_fft re", got_re, want_re, tol),
+               require_close("spm_fft im", got_im, want_im, tol))
+
+
+def check_fft(rng, B, n, device) -> float:
+    re = random_floats(rng, (B, n), torch.float32, device)
+    im = random_floats(rng, (B, n), torch.float32, device)
+    return compare_fft(*sf.spm_fft(re, im), re, im)
+
+
+def het_mimd_operands(rng, H, W, F, nb, n, m, k, p, device):
+    """A zero-padded image (as the reference's callers pad it), a
+    filter, FFT planes and matmul operands, all standard normal."""
+    img = torch.zeros((H + F - 1, W + F - 1), dtype=torch.float32)
+    pad = F // 2
+    img[pad:pad + H, pad:pad + W] = random_floats(rng, (H, W),
+                                                  torch.float32, "cpu")
+    return (img.to(device),
+            random_floats(rng, (F, F), torch.float32, device),
+            random_floats(rng, (nb, n), torch.float32, device),
+            random_floats(rng, (nb, n), torch.float32, device),
+            random_floats(rng, (m, k), torch.float32, device),
+            random_floats(rng, (k, p), torch.float32, device))
+
+
+def compare_het_mimd(got, img, filt, fre, fim, A, B) -> float:
+    """The composite's four outputs against its plain version, each
+    within its part's bound (conv and FFT as above, the matmul within
+    :func:`dot_tolerance`)."""
+    _no_tf32(A.device)
+    conv, ore, oim, mm = hm.het_mimd_composite_plain(img, filt, fre, fim,
+                                                     A, B)
+    tol_mm = dot_tolerance(A, B)
+    tol_fft = _fft_tolerance(fre, fim)
+    return max(
+        require_close("het_mimd conv", got[0], conv,
+                      _conv_tolerance(img, filt, conv)),
+        require_close("het_mimd fft re", got[1], ore, tol_fft),
+        require_close("het_mimd fft im", got[2], oim, tol_fft),
+        require_close("het_mimd matmul", got[3], mm, tol_mm))
+
+
+def check_het_mimd(rng, H, W, F, nb, n, m, k, p, device) -> float:
+    ops = het_mimd_operands(rng, H, W, F, nb, n, m, k, p, device)
+    return compare_het_mimd(hm.het_mimd_composite(*ops), *ops)
+
+
+MATMUL_TYPES = ((torch.float32, None), (torch.bfloat16, None),
+                (torch.bfloat16, torch.float32), (torch.int8, None))
+CONV_TYPES = ((torch.int32, 0), (torch.int32, 4), (torch.int32, 31),
+              (torch.int32, 40), (torch.float32, 0), (torch.bfloat16, 0))
+
+
+def compute_kernel_cases() -> Sequence[Tuple[str, dict]]:
+    """``(kernel, shape)``: odd shapes (nothing a multiple of a tile;
+    images smaller than a filter; FFT rows from 1 point to the 16384
+    that needs the opt-in shared memory) for the four compute kernels."""
+    return (
+        ("spm_matmul", dict(M=1, K=1, N=1)),
+        ("spm_matmul", dict(M=33, K=65, N=17)),
+        ("spm_matmul", dict(M=129, K=257, N=63)),
+        ("spm_matmul", dict(M=70, K=5, N=200)),
+        ("spm_conv2d", dict(H=33, W=31, F=3)),
+        ("spm_conv2d", dict(H=64, W=48, F=5)),
+        ("spm_conv2d", dict(H=17, W=45, F=4)),
+        ("spm_conv2d", dict(H=5, W=7, F=11)),
+        ("spm_fft", dict(B=3, n=64)),
+        ("spm_fft", dict(B=4, n=2)),
+        ("spm_fft", dict(B=2, n=1)),
+        ("spm_fft", dict(B=1000, n=8)),
+        ("spm_fft", dict(B=3, n=4096)),
+        ("spm_fft", dict(B=2, n=16384)),
+        ("het_mimd", dict(H=32, W=32, F=3, nb=4, n=128, m=32, k=48, p=16)),
+        ("het_mimd", dict(H=35, W=19, F=4, nb=5, n=8192, m=33, k=17,
+                          p=70)),
+    )
+
+
+def check_compute_case(rng, kernel: str, shape: dict, device) -> float:
+    """Every dtype / shift variant of one :func:`compute_kernel_cases`
+    entry (one launch each); returns the largest absolute difference."""
+    if kernel == "spm_matmul":
+        return max(check_matmul(rng, dtype=dt, device=device, out_dtype=od,
+                                **shape) for dt, od in MATMUL_TYPES)
+    if kernel == "spm_conv2d":
+        return max(check_conv(rng, dtype=dt, device=device, shift=s,
+                              **shape) for dt, s in CONV_TYPES)
+    if kernel == "spm_fft":
+        return check_fft(rng, device=device, **shape)
+    return check_het_mimd(rng, device=device, **shape)

@@ -1,0 +1,386 @@
+"""On-card microbenchmarks of the paper's compute kernels: the port of
+the matmul / conv2d / FFT rows of the reference's
+``benchmarks/kernel_micro.py`` and of the het-MIMD stage of
+``examples/composite_workload.py``.
+
+    python -m repro_torch.kernels.micro [--seed 0]
+
+Runs on the card only: without one it exits 2 and prints no result. For
+each workload — the reference's shapes (``REFERENCE``) and the
+card-scale shapes of the port's main path (``CARD``) — it builds the
+inputs from ``--seed``, runs the kernel through
+:mod:`repro_torch.kernels.ops`, holds the output against the plain
+version (:mod:`repro_torch.kernels.checks`), and prints one JSON line:
+bytes and operations, the H100 roofline terms (bytes over the memory
+rate, operations over the peak rate of their type) and the bound, the
+kernel's device time (``torch.profiler``) and call time (CUDA events),
+the plain version's, and one PyTorch library call's where one computes
+the same function. The last line is the card's name and power limit.
+
+``chip_smoke.py`` takes its workloads, costs and timers from here.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as tnf
+
+from repro_torch.kernels import checks, ops
+from repro_torch.kernels import het_mimd as hm
+from repro_torch.kernels import spm_conv2d as sc
+from repro_torch.kernels import spm_fft as sf
+from repro_torch.kernels import spm_matmul as sm
+from repro_torch.kernels.common import resolve_device
+
+# NVIDIA H100 SXM data sheet, dense rates at the 700 W limit. The data
+# sheet gives no INT32 rate: the Hopper architecture white paper gives
+# each SM quarter 16 INT32 lanes against 32 FP32 lanes, so INT32 runs at
+# half the FP32 rate (a multiply-add counting as two operations).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {
+    "bf16": 989e12,        # bf16 tensor cores
+    "int8": 1979e12,       # int8 tensor cores
+    "fp32": 67e12,         # FP32 outside the tensor cores (no TF32)
+    "int32": 33.5e12,      # INT32 outside the tensor cores
+}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8, "int32": torch.int32}
+MODULES = {"spm_matmul": sm, "spm_conv2d": sc, "spm_fft": sf,
+           "het_mimd": hm}
+
+
+@dataclass(frozen=True)
+class Workload:
+    """One kernel call: ``kernel`` names the module, ``shape`` its
+    arguments (sizes, ``dtype``, conv ``shift``), ``use`` what users do
+    with it."""
+
+    name: str
+    kernel: str
+    shape: dict
+    use: str
+
+
+REFERENCE = (
+    Workload("ref_matmul_bf16_512", "spm_matmul",
+             dict(M=512, K=512, N=512, dtype="bfloat16"),
+             "benchmarks/kernel_micro.py: spm_matmul 512^3 bf16"),
+    Workload("ref_conv_f32_256_f3", "spm_conv2d",
+             dict(H=256, W=256, F=3, dtype="float32"),
+             "benchmarks/kernel_micro.py: spm_conv2d 256^2 3x3"),
+    Workload("ref_fft_64x256", "spm_fft", dict(B=64, n=256),
+             "benchmarks/kernel_micro.py: spm_fft 64x256"),
+)
+
+CARD = (
+    Workload("matmul_bf16_4096", "spm_matmul",
+             dict(M=4096, K=4096, N=4096, dtype="bfloat16"),
+             "the intrinsics layer's dense product at LM width"),
+    Workload("matmul_int8_4096", "spm_matmul",
+             dict(M=4096, K=4096, N=4096, dtype="int8"),
+             "the paper's 8-bit sub-word SIMD product"),
+    Workload("matmul_f32_2048", "spm_matmul",
+             dict(M=2048, K=2048, N=2048, dtype="float32"),
+             "full-precision product (no TF32)"),
+    Workload("conv_int32_2048_f3", "spm_conv2d",
+             dict(H=2048, W=2048, F=3, dtype="int32", shift=4),
+             "the paper's fixed-point conv, 3x3 filter"),
+    Workload("conv_int32_2048_f11", "spm_conv2d",
+             dict(H=2048, W=2048, F=11, dtype="int32", shift=4),
+             "the paper's fixed-point conv, 11x11 filter"),
+    Workload("conv_f32_2048_f3", "spm_conv2d",
+             dict(H=2048, W=2048, F=3, dtype="float32"),
+             "float image filtering"),
+    Workload("fft_16384x256", "spm_fft", dict(B=16384, n=256),
+             "batched FFT-256 (the paper's size)"),
+    Workload("fft_4096x1024", "spm_fft", dict(B=4096, n=1024),
+             "batched 1024-point transform"),
+    Workload("composite_paper", "het_mimd",
+             dict(H=32, W=32, F=3, nb=4, n=256, m=64, k=64, p=64),
+             "examples/composite_workload.py: the paper's composite"),
+    Workload("composite_1024", "het_mimd",
+             dict(H=1024, W=1024, F=3, nb=1024, n=256, m=1024, k=1024,
+                  p=1024),
+             "the same composite at card scale"),
+)
+
+
+def card_line() -> str:
+    """``name, power limit`` of the card, as ``nvidia-smi`` reports it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def card_settings() -> None:
+    """Hold float32 products and convolutions on the card to full
+    float32 (the library calls then compute the kernels' function)."""
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmul is on; the float32 comparisons "
+                           "and library times need it off")
+
+
+# ---------------------------------------------------------------------------
+# inputs, runs and comparisons
+# ---------------------------------------------------------------------------
+
+def make_inputs(w: Workload, rng: np.random.Generator, device) -> dict:
+    s = w.shape
+    if w.kernel == "spm_matmul":
+        a, b = checks.matmul_operands(rng, s["M"], s["K"], s["N"],
+                                      DTYPES[s["dtype"]], device)
+        return dict(a=a, b=b)
+    if w.kernel == "spm_conv2d":
+        img, filt = checks.conv_operands(rng, s["H"], s["W"], s["F"],
+                                         DTYPES[s["dtype"]], device)
+        return dict(img=img, filt=filt, shift=s.get("shift", 0))
+    if w.kernel == "spm_fft":
+        return dict(re=checks.random_floats(rng, (s["B"], s["n"]),
+                                            torch.float32, device),
+                    im=checks.random_floats(rng, (s["B"], s["n"]),
+                                            torch.float32, device))
+    names = ("img", "filt", "fre", "fim", "A", "B")
+    return dict(zip(names, checks.het_mimd_operands(
+        rng, s["H"], s["W"], s["F"], s["nb"], s["n"], s["m"], s["k"],
+        s["p"], device)))
+
+
+def run_kernel(w: Workload, x: dict):
+    """The workload through the intrinsics layer (the kernel on the
+    card)."""
+    if w.kernel == "spm_matmul":
+        return ops.matmul_op(x["a"], x["b"])
+    if w.kernel == "spm_conv2d":
+        return ops.conv2d_op(x["img"], x["filt"], shift=x["shift"])
+    if w.kernel == "spm_fft":
+        return ops.fft_op(x["re"], x["im"])
+    return ops.het_mimd_composite(x["img"], x["filt"], x["fre"], x["fim"],
+                                  x["A"], x["B"])
+
+
+def run_plain(w: Workload, x: dict):
+    if w.kernel == "spm_matmul":
+        return sm.spm_matmul_plain(x["a"], x["b"])
+    if w.kernel == "spm_conv2d":
+        return sc.spm_conv2d_plain(x["img"], x["filt"], shift=x["shift"])
+    if w.kernel == "spm_fft":
+        return sf.spm_fft_plain(x["re"], x["im"])
+    return hm.het_mimd_composite_plain(x["img"], x["filt"], x["fre"],
+                                       x["fim"], x["A"], x["B"])
+
+
+def compare_plain(w: Workload, x: dict, out) -> float:
+    """The kernel's output against the plain version on the same
+    inputs (:mod:`checks`' bounds); the largest absolute difference."""
+    if w.kernel == "spm_matmul":
+        return checks.compare_matmul(out, x["a"], x["b"])
+    if w.kernel == "spm_conv2d":
+        return checks.compare_conv(out, x["img"], x["filt"], x["shift"])
+    if w.kernel == "spm_fft":
+        return checks.compare_fft(*out, x["re"], x["im"])
+    return checks.compare_het_mimd(out, x["img"], x["filt"], x["fre"],
+                                   x["fim"], x["A"], x["B"])
+
+
+def library_call(w: Workload, x: dict) -> Optional[Callable[[], object]]:
+    """One PyTorch call computing the workload's function (three for the
+    composite, one per hart), or None where PyTorch has none: an int32
+    convolution, an int8 product outside ``torch._int_mm``'s shapes."""
+    if w.kernel == "spm_matmul":
+        a, b = x["a"], x["b"]
+        if a.dtype != torch.int8:
+            return lambda: torch.matmul(a, b)
+        M, K = a.shape
+        if M > 16 and K % 8 == 0 and b.shape[1] % 8 == 0:
+            return lambda: torch._int_mm(a, b)
+        return None
+    if w.kernel == "spm_conv2d":
+        img, filt = x["img"], x["filt"]
+        F = filt.shape[0]
+        if img.dtype != torch.float32 or F % 2 == 0:
+            return None
+        i4, f4 = img[None, None], filt[None, None]
+        return lambda: tnf.conv2d(i4, f4, padding=F // 2)
+    if w.kernel == "spm_fft":
+        z = torch.complex(x["re"], x["im"])
+        return lambda: torch.fft.fft(z)
+    i4, f4 = x["img"][None, None], x["filt"][None, None]
+    z, A, B = torch.complex(x["fre"], x["fim"]), x["A"], x["B"]
+    return lambda: (tnf.conv2d(i4, f4), torch.fft.fft(z), torch.matmul(A, B))
+
+
+# ---------------------------------------------------------------------------
+# work, bounds and timing
+# ---------------------------------------------------------------------------
+
+def _fft_cost(B: int, n: int) -> Tuple[int, int]:
+    # four float32 planes and the twiddle table; 10 flops a butterfly
+    return 16 * B * n + 8 * max(n - 1, 1), 5 * B * n * (n.bit_length() - 1)
+
+
+def cost(w: Workload) -> Tuple[int, List[Tuple[int, str]]]:
+    """``(bytes, [(operations, peak key), ...])``: each input read once
+    and each output written once; a multiply-add counts as two
+    operations, an FFT butterfly as ten."""
+    s = w.shape
+    if w.kernel == "spm_matmul":
+        dt = DTYPES[s["dtype"]]
+        M, K, N = s["M"], s["K"], s["N"]
+        out = sm.result_dtype(dt)
+        size = torch.empty((), dtype=dt).element_size()
+        osize = torch.empty((), dtype=out).element_size()
+        key = {torch.bfloat16: "bf16", torch.int8: "int8"}.get(dt, "fp32")
+        return (M * K + K * N) * size + M * N * osize, [(2 * M * N * K, key)]
+    if w.kernel == "spm_conv2d":
+        dt = DTYPES[s["dtype"]]
+        H, W, F = s["H"], s["W"], s["F"]
+        size = torch.empty((), dtype=dt).element_size()
+        return 2 * H * W * size + 4 * F * F, [
+            (2 * F * F * H * W, "int32" if dt == torch.int32 else "fp32")]
+    if w.kernel == "spm_fft":
+        nbytes, flops = _fft_cost(s["B"], s["n"])
+        return nbytes, [(flops, "fp32")]
+    H, W, F, m, k, p = (s[c] for c in ("H", "W", "F", "m", "k", "p"))
+    fft_bytes, fft_flops = _fft_cost(s["nb"], s["n"])
+    conv_bytes = 4 * ((H + F - 1) * (W + F - 1) + F * F + H * W)
+    return (conv_bytes + fft_bytes + 4 * (m * k + k * p + m * p),
+            [(2 * F * F * H * W, "fp32"), (fft_flops, "fp32"),
+             (2 * m * k * p, "fp32")])
+
+
+def bound(nbytes: int, op_terms) -> Dict[str, object]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rates (summed
+    over terms, which share the card)."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(n / PEAK_OPS_PER_S[key] for n, key in op_terms) * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_ms=bytes_ms, ops_ms=ops_ms, bytes=nbytes,
+                ops=sum(n for n, _ in op_terms))
+
+
+def device_us(ev) -> float:
+    """Device time of one averaged profiler event: counted on the device
+    events themselves (kernels, memcpy, memset) only — a CPU op reports
+    its kernels' time as well, which would count them twice."""
+    if (not str(ev.device_type).endswith("CUDA")
+            or getattr(ev, "is_user_annotation", False)):
+        return 0.0
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
+
+
+def timed(fn, reps: int, match: Optional[str] = None) -> dict:
+    """Two times per call of ``fn`` after a warm-up: ``call_ms`` from
+    CUDA events around ``reps`` back-to-back calls (what a caller pays;
+    host-bound when the host enqueues slower than the card runs), and
+    ``device_ms`` from a ``torch.profiler`` trace of ``reps`` more calls:
+    the device time of events whose name contains ``match`` (every
+    device event when None), or None when the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    call_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(ev) for ev in prof.key_averages()
+             if match is None or match in ev.key)
+    return dict(call_ms=call_ms, device_ms=us / 1e3 / reps or None)
+
+
+def times(kernel: dict, plain: dict, library: Optional[dict] = None) -> dict:
+    """The JSON's times: the kernel's device time (its call time when
+    the profiler sees no device time), the plain version's and the
+    library call's likewise, each beside its call time."""
+    out = dict(ms=kernel["device_ms"] or kernel["call_ms"],
+               ms_source="profiler" if kernel["device_ms"] else "events",
+               call_ms=kernel["call_ms"],
+               plain_ms=plain["device_ms"] or plain["call_ms"],
+               plain_call_ms=plain["call_ms"], library_ms=None,
+               library_call_ms=None)
+    if library is not None:
+        out.update(library_ms=library["device_ms"] or library["call_ms"],
+                   library_call_ms=library["call_ms"])
+    return out
+
+
+def _reps(fn, budget_ms: float = 100.0) -> int:
+    """Enough back-to-back calls to fill about ``budget_ms``, 3 to 200."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return int(min(200, max(3, budget_ms / max(start.elapsed_time(end),
+                                               1e-3))))
+
+
+def time_workload(w: Workload, x: dict) -> dict:
+    """Kernel, plain and library times of one workload, beside its
+    bound. The kernel's launch counter is restored afterwards: timing
+    launches are not the main path's."""
+    mod = MODULES[w.kernel]
+    before = mod.launch_count
+    kern = lambda: run_kernel(w, x)                         # noqa: E731
+    plain = lambda: run_plain(w, x)                         # noqa: E731
+    lib = library_call(w, x)
+    t = times(timed(kern, _reps(kern), f"{w.kernel}_kernel"),
+              timed(plain, _reps(plain)),
+              None if lib is None else timed(lib, _reps(lib)))
+    mod.launch_count = before
+    return dict(t, **bound(*cost(w)))
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("micro: no CUDA device available; the microbenchmarks run on "
+              "the card only", file=sys.stderr)
+        return 2
+    device = resolve_device(None)
+    card_settings()
+    card = card_line()
+    rng = np.random.default_rng(args.seed)
+    for w in REFERENCE + CARD:
+        x = make_inputs(w, rng, device)
+        err = compare_plain(w, x, run_kernel(w, x))
+        rec = dict(name=w.name, kernel=w.kernel, shape=w.shape, use=w.use,
+                   max_abs_err_vs_plain=err, **time_workload(w, x))
+        print(json.dumps(rec) + f"; card: {card}")
+        del x
+        torch.cuda.empty_cache()
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,8 @@ run their plain PyTorch versions.
 from repro_torch.kvi.backend import (Backend, BackendBase, BackendResult,
                                      available_backends, get_backend,
                                      register_backend)
-from repro_torch.kvi.interop import program_from_reference
+from repro_torch.kvi.interop import (array_from_reference,
+                                     program_from_reference)
 from repro_torch.kvi.ir import (ELEMWISE_OPS, MEM_OPS, REDUCTION_OPS,
                                 KviInstr, KviOp, KviProgram,
                                 KviProgramBuilder, MemRef, Ref, ScalarBlock,
@@ -33,6 +34,7 @@ from repro_torch.kvi.workload import (HartAssignment, KviWorkload,
 __all__ = [
     "Backend", "BackendBase", "BackendResult", "available_backends",
     "get_backend", "register_backend", "program_from_reference",
+    "array_from_reference",
     "KviInstr", "KviOp", "KviProgram", "KviProgramBuilder", "MemRef", "Ref",
     "ScalarBlock", "VReg", "View", "ELEMWISE_OPS", "MEM_OPS",
     "REDUCTION_OPS", "PassPipeline", "DEFAULT_PASSES", "default_pipeline",

@@ -7,12 +7,16 @@ the port's :class:`~repro_torch.kvi.ir.KviProgram` by duck typing alone
 through ``op.value``. The reference's attached fusion plan is dropped;
 the port's own pipeline re-plans. This is what lets a test run the same
 program, with the same ``mem_init`` arrays, through both packages.
+
+:func:`array_from_reference` carries a kernel's data across: the
+compute kernels have no weights, their inputs are the data.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.kvi.ir import (KviInstr, KviOp, KviProgram, MemRef, Ref,
                                 ScalarBlock, VReg)
@@ -21,6 +25,18 @@ from repro_torch.kvi.passes.fusion import META_KEY
 
 def _ref(r) -> Optional[Ref]:
     return None if r is None else Ref(r.space, int(r.id), int(r.offset))
+
+
+def array_from_reference(x) -> torch.Tensor:
+    """A CPU tensor holding a copy of ``x`` (a numpy array, or anything
+    ``np.asarray`` takes, such as a reference JAX array). bfloat16
+    arrives as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses, so it crosses bit for bit through a ``uint16`` view."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        bits = np.array(x, copy=True, order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.from_numpy(np.array(x, copy=True))
 
 
 def program_from_reference(obj) -> KviProgram:

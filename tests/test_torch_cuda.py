@@ -1,6 +1,7 @@
 """Card tests: each CUDA kernel against its plain PyTorch version on the
-same CUDA tensors, at the main path's shapes, and the backend on the card
-against the backend on the CPU. Marked ``cuda``; they skip with a reason
+same CUDA tensors, at the main path's shapes (and, for the compute
+kernels, at odd shapes and one card-scale shape each), and the backend on
+the card against the backend on the CPU. Marked ``cuda``; they skip with a reason
 where no card (or no nvcc) is present — decided in a fixture, never at
 import, so every worker collects the same tests. Run them on the card:
 
@@ -14,6 +15,7 @@ import repro_torch.kvi as tk
 from repro_torch.kernels import checks
 from repro_torch.kernels import fused_vops as fv
 from repro_torch.kernels import kdotp as kd
+from repro_torch.kernels import micro
 from repro_torch.kernels.build import nvcc_path
 from repro_torch.kvi.programs import conv2d_program, fft_program
 from repro_torch.kvi.torch_backend import TorchBackend
@@ -105,3 +107,60 @@ def test_backend_on_the_card_equals_cpu(card):
     for g, w in zip(got.entry_results, want.entry_results):
         for name, arr in w.outputs.items():
             np.testing.assert_array_equal(g.outputs[name], arr)
+
+
+VARIANTS = {"spm_matmul": len(checks.MATMUL_TYPES),
+            "spm_conv2d": len(checks.CONV_TYPES), "spm_fft": 1, "het_mimd": 1}
+
+
+@pytest.mark.parametrize("case", checks.compute_kernel_cases(),
+                         ids=lambda c: f"{c[0]}-" + "-".join(
+                             f"{k}{v}" for k, v in c[1].items()))
+def test_compute_kernel_equals_plain_at_odd_shapes(card, case):
+    kernel, shape = case
+    mod = micro.MODULES[kernel]
+    before = mod.launch_count
+    checks.check_compute_case(np.random.default_rng(6), kernel, shape, card)
+    torch.cuda.synchronize()
+    assert mod.launch_count == before + VARIANTS[kernel]
+
+
+@pytest.mark.parametrize("name", ["matmul_f32_2048", "conv_int32_2048_f11",
+                                  "fft_4096x1024", "composite_1024"])
+def test_compute_kernel_equals_plain_at_card_scale(card, name):
+    w = next(w for w in micro.CARD if w.name == name)
+    x = micro.make_inputs(w, np.random.default_rng(7), card)
+    mod = micro.MODULES[w.kernel]
+    before = mod.launch_count
+    out = micro.run_kernel(w, x)
+    torch.cuda.synchronize()
+    assert mod.launch_count == before + 1        # the composite too: ONE
+    micro.compare_plain(w, x, out)
+
+
+@pytest.mark.parametrize("shape", [(33, 65, 17), (1024, 1024, 1024),
+                                   (2048, 2048, 2048)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_float32_matmul_check_rejects_a_tf32_product(card, shape):
+    """cuBLAS with TF32 allowed must fail the check the kernel's float32
+    products (standalone and in the composite) pass."""
+    a, b = checks.matmul_operands(np.random.default_rng(8), *shape,
+                                  torch.float32, card)
+    out = checks.reject_tf32(checks.tf32_product(a, b), a, b)
+    assert out["max_err_over_tol"] > 1
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_compute_kernel_launch_errors_raise(card):
+    """A launch the kernel refuses raises with the CUDA error; nothing
+    falls back to the plain version."""
+    from repro_torch.kernels import spm_fft as sf
+    lib = sf._library()
+    x = torch.zeros((1, 4), device=card)
+    rc = lib.spm_fft_launch(x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                            x.data_ptr(), x.data_ptr(), 1, 15,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+    with pytest.raises(ValueError, match="exceeds"):
+        sf.spm_fft(torch.zeros((1, 32768), device=card),
+                   torch.zeros((1, 32768), device=card))
