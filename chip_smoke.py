@@ -6,14 +6,14 @@
 Needs one CUDA card, ``nvcc`` and this checkout (``src/repro_torch``);
 imports nothing of JAX or of the reference package ``repro``. Phases:
 
-1. build   — compile the six CUDA sources of ``src/repro_torch/csrc/``
+1. build   — compile the eight CUDA sources of ``src/repro_torch/csrc/``
    for sm_90a, one ``nvcc`` per source, in parallel;
 2. check   — each kernel against its plain PyTorch version on the same
    CUDA tensors: slice 1's at the KVI path's shapes, bit for bit; the
-   four compute kernels at odd shapes (no dimension a multiple of a
-   tile), integers bit for bit, floats within error bounds; then TF32
-   products (cuBLAS with TF32 allowed), which the float32 matmul check
-   must reject;
+   four compute kernels, flash attention and the SSD scan at odd shapes
+   (no dimension a multiple of a tile), integers bit for bit, floats
+   within error bounds; then TF32 products (cuBLAS with TF32 allowed),
+   which the float32 matmul check must reject;
 3. slice 1 — the KVI main path at the paper's sizes through
    ``get_backend("torch").run_workload``: conv2d 32x32 (F = 3 and 11),
    FFT-256, streamed matmul 64x64 (kdotp and kdotpps), pipeline_demo and
@@ -27,10 +27,16 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    each output held against its plain version on the same tensors and
    against an independent numpy formula (int64 sums, float64 products
    and FFTs); the launch counters must show one launch per call;
+   slice 3 — ``ops.attention_op`` and ``ops.ssd_scan_op`` at the widths
+   of the repo's configs (llama3.2-1b causal 4096, hymba-1.5b window
+   2048 over 8192, a mixtral prefill continuation, mamba2-1.3b's SSD at
+   4096), driven likewise with the counters set to 0 just before, each
+   output against its plain version and a float64 numpy formula on
+   sampled heads and rows;
 5. time    — each kernel at main-path shapes with ``torch.profiler`` and
    CUDA events, beside its plain version, its bound and (where one
    exists) a PyTorch library call computing the same function; for the
-   compute kernels every workload of phase 4.
+   compute and LM kernels every workload of phase 4.
 
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers and
@@ -368,6 +374,74 @@ def _formula_fft(name, got_re, got_im, re, im):
                        1e-3 * n + 1e-3 * np.abs(want.imag)))
 
 
+def _formula_attention(name, got, q, k, v, causal, window, q_offset):
+    """float64 softmax attention on the first and last ``FORMULA_ROWS``
+    query rows of the first and the last head (a row that sees no key
+    gives 0), within the JAX test's tolerance (2e-3 relative and
+    absolute) plus one bf16 step of the output's rounding."""
+    B, H, Sq, hd = q.shape
+    G = H // k.shape[1]
+    rows = np.unique(np.r_[0:min(FORMULA_ROWS, Sq),
+                           max(0, Sq - FORMULA_ROWS):Sq])
+    k_pos = np.arange(k.shape[2])
+    err = 0.0
+    for b, h in {(0, 0), (B - 1, H - 1)}:
+        qh = _np(q[b, h])[rows].astype(np.float64)
+        kh = _np(k[b, h // G]).astype(np.float64)
+        vh = _np(v[b, h // G]).astype(np.float64)
+        s = qh @ kh.T / np.sqrt(hd)
+        q_pos = q_offset + rows[:, None]
+        vis = np.ones(s.shape, bool)
+        if causal:
+            vis &= q_pos >= k_pos[None, :]
+        if window:
+            vis &= q_pos - k_pos[None, :] < window
+        s = np.where(vis, s, -np.inf)
+        m = np.max(s, axis=1, keepdims=True)
+        p = np.where(vis, np.exp(s - np.where(np.isfinite(m), m, 0.0)), 0.0)
+        l = p.sum(axis=1, keepdims=True)
+        want = (p @ vh) / np.where(l > 0, l, 1.0)
+        tol = 2e-3 * (1 + np.abs(want))
+        if got.dtype != q.dtype or got.shape != q.shape:
+            raise AssertionError(f"{name}: output {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if str(got.dtype).endswith("bfloat16"):
+            tol = tol + 2.0 ** -7 * np.abs(want)
+        err = max(err, _within(f"{name} b{b} h{h}", _np(got[b, h])[rows],
+                               want, tol))
+    return err
+
+
+def _formula_ssd(name, got, x, dt, A, B, C):
+    """The SSD recurrence, one step at a time in float64 numpy, for the
+    first and the last (batch, head): y and the final state within the
+    JAX test's tolerance (3e-3 relative and absolute), plus one bf16 step
+    for a bf16 y."""
+    Bz, S, H, P = x.shape
+    rep = H // B.shape[2]
+    y, state = got
+    err = 0.0
+    for b, h in {(0, 0), (Bz - 1, H - 1)}:
+        xs = _np(x[b, :, h]).astype(np.float64)
+        dts = _np(dt[b, :, h]).astype(np.float64)
+        a = np.exp(dts * float(_np(A)[h]))
+        Bs = _np(B[b, :, h // rep]).astype(np.float64)
+        Cs = _np(C[b, :, h // rep]).astype(np.float64)
+        st = np.zeros((P, Bs.shape[1]))
+        want = np.empty((S, P))
+        for t in range(S):
+            st = st * a[t] + np.outer(dts[t] * xs[t], Bs[t])
+            want[t] = st @ Cs[t]
+        tol = 3e-3 * (1 + np.abs(want))
+        if str(y.dtype).endswith("bfloat16"):
+            tol = tol + 2.0 ** -7 * np.abs(want)
+        err = max(err, _within(f"{name} y b{b} h{h}", _np(y[b, :, h]), want,
+                               tol),
+                  _within(f"{name} state b{b} h{h}", _np(state[b, h]), st.T,
+                          3e-3 * (1 + np.abs(st.T))))
+    return err
+
+
 def formula_check(w, x, out) -> float:
     """The workload's output against a numpy formula that shares no code
     with the kernel or its plain version; the largest absolute
@@ -381,6 +455,12 @@ def formula_check(w, x, out) -> float:
                              pad=True)
     if w.kernel == "spm_fft":
         return _formula_fft(w.name, *out, x["re"], x["im"])
+    if w.kernel == "flash_attention":
+        return _formula_attention(w.name, out, x["q"], x["k"], x["v"],
+                                  x["causal"], x["window"], x["q_offset"])
+    if w.kernel == "ssd_scan":
+        return _formula_ssd(w.name, out, x["x"], x["dt"], x["A"], x["B"],
+                            x["C"])
     conv, ore, oim, mm = out
     return max(_formula_conv(f"{w.name} conv", conv, x["img"], x["filt"],
                              0, pad=False),
@@ -389,13 +469,15 @@ def formula_check(w, x, out) -> float:
                                False))
 
 
-def run_compute_slice(device, rng, workloads, log=print):
-    """Phase 4: every compute workload once through the intrinsics layer
-    on ``device``, with the four kernels' launch counters set to 0 just
+def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
+    """Phase 4: every workload once through the intrinsics layer on
+    ``device``, with the compute kernels' launch counters set to 0 just
     before and read just after; then each output against its plain
     version and its numpy formula. On the card each call must be one
     launch of its kernel. Returns ``(inputs by name, launches, largest
-    difference from the plain version by kernel)``."""
+    difference from the plain version by kernel)``; ``tag`` heads the
+    log lines (``slice2``: the paper's kernels, ``slice3``: attention
+    and the SSD scan)."""
     import torch
     from repro_torch.kernels import micro
     inputs = {w.name: micro.make_inputs(w, rng, device) for w in workloads}
@@ -417,7 +499,7 @@ def run_compute_slice(device, rng, workloads, log=print):
         e_plain = micro.compare_plain(w, x, out)
         e_formula = formula_check(w, x, out)
         err[w.kernel] = max(err[w.kernel], e_plain)
-        log(f"[slice2] {w.name}: {w.use}; {json.dumps(w.shape)}; equals "
+        log(f"[{tag}] {w.name}: {w.use}; {json.dumps(w.shape)}; equals "
             f"its plain version (max abs diff {e_plain}) and its numpy "
             f"formula (max abs diff {e_formula})")
         del out
@@ -579,6 +661,8 @@ def main(argv=None) -> int:
     print(f"[check] the float32 matmul check rejects TF32 products "
           f"(cuBLAS, TF32 allowed): {json.dumps(controls)}; card: {card}")
 
+    inputs = {}
+
     # 3. slice 1 on the card -----------------------------------------------
     fv.launch_count = 0
     kd.launch_count = 0
@@ -596,14 +680,18 @@ def main(argv=None) -> int:
           f"profiled runs): "
           f"{launches}; card: {card}")
 
-    # 4. slice 2 on the card -----------------------------------------------
-    inputs, launches2, err2 = run_compute_slice(
-        device, rng, micro.CARD, log=lambda m: print(f"{m}; card: {card}"))
-    launches.update(launches2)
-    for k in err2:
-        err[k] = max(err2[k], odd[k])
-    print(f"[slice2] launches over the compute path (one per call): "
-          f"{launches2}; card: {card}")
+    # 4. slices 2 and 3 on the card ----------------------------------------
+    for tag, kernels in (("slice2", SLICE2), ("slice3", SLICE3)):
+        workloads = [w for w in micro.CARD if w.kernel in kernels]
+        ins, run_launches, run_err = run_compute_slice(
+            device, rng, workloads, tag=tag,
+            log=lambda m: print(f"{m}; card: {card}"))
+        inputs.update(ins)
+        for k in kernels:
+            launches[k] = run_launches[k]
+            err[k] = max(run_err[k], odd[k])
+        print(f"[{tag}] launches over the path (one per call): "
+              f"{ {k: run_launches[k] for k in kernels} }; card: {card}")
 
     # 5. kernel times --------------------------------------------------------
     times = {"fused_vops": time_fused(rng, device),
@@ -619,8 +707,9 @@ def main(argv=None) -> int:
     for k, ws in by_kernel.items():
         times[k] = dict(ws[SHOWN[k]], shape=SHOWN[k], workloads={
             name: {key: t[key] for key in (
-                "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by")} for name, t in ws.items()})
+                "ms", "call_ms", "plain_ms", "library_ms", "library_kernel",
+                "bound_ms", "bound_by") if key in t}
+            for name, t in ws.items()})
     kernels = []
     for name, source, replaces in KERNELS:
         t = times[name]
@@ -661,7 +750,14 @@ KERNELS = (
      "src/repro/kernels/spm_fft.py:29"),
     ("het_mimd", "src/repro_torch/csrc/het_mimd.cu",
      "src/repro/kernels/het_mimd.py:25"),
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:29"),
+    ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:24"),
 )
+#: the kernels of phase 4's two driven runs
+SLICE2 = ("spm_matmul", "spm_conv2d", "spm_fft", "het_mimd")
+SLICE3 = ("flash_attention", "ssd_scan")
 #: float32 matmul shapes (M, K, N) of the TF32 controls: odd, the paper
 #: composite's, composite_1024's and matmul_f32_2048's
 TF32_CONTROLS = ((33, 65, 17), (64, 64, 64), (1024, 1024, 1024),
@@ -669,7 +765,9 @@ TF32_CONTROLS = ((33, 65, 17), (64, 64, 64), (1024, 1024, 1024),
 #: the workload whose numbers stand in a compute kernel's JSON entry
 #: (every workload's are under "workloads")
 SHOWN = {"spm_matmul": "matmul_bf16_4096", "spm_conv2d": "conv_int32_2048_f3",
-         "spm_fft": "fft_16384x256", "het_mimd": "composite_1024"}
+         "spm_fft": "fft_16384x256", "het_mimd": "composite_1024",
+         "flash_attention": "attn_llama3.2-1b_causal_4096",
+         "ssd_scan": "ssd_mamba2-1.3b_4096"}
 
 
 if __name__ == "__main__":

@@ -23,6 +23,13 @@ log2(n) stages in two implementations stay within ``8 log2(n) u L1``.
 conv2d and the FFT round every operation as their plain versions do, so
 on the card they are expected to agree exactly; the bound is what is
 enforced, and the returned maximum shows the rest.
+
+Attention and the SSD scan are held to a worst-case bound relative to
+the sum of absolute terms (:func:`attention_tolerance`,
+:func:`ssd_tolerance`), capped at the JAX tests' own tolerance for these
+kernels (``tests/kernels/test_kernels.py``: rtol = atol = 2e-3 for
+attention, 3e-3 for the SSD scan), so the card check is never looser
+than the CPU one; a bf16 output adds one bf16 step.
 """
 from __future__ import annotations
 
@@ -31,12 +38,15 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_vops as fv
 from repro_torch.kernels import het_mimd as hm
 from repro_torch.kernels import kdotp as kd
+from repro_torch.kernels import ops
 from repro_torch.kernels import spm_conv2d as sc
 from repro_torch.kernels import spm_fft as sf
 from repro_torch.kernels import spm_matmul as sm
+from repro_torch.kernels import ssd_scan as ss
 
 _NP = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32,
        torch.float32: np.float32}
@@ -428,16 +438,140 @@ def check_het_mimd(rng, H, W, F, nb, n, m, k, p, device) -> float:
     return compare_het_mimd(hm.het_mimd_composite(*ops), *ops)
 
 
+# ---------------------------------------------------------------------------
+# the LM-scale kernels (flash_attention, ssd_scan)
+# ---------------------------------------------------------------------------
+
+ATTENTION_TOL = 2e-3       # tests/kernels/test_kernels.py:80
+SSD_TOL = 3e-3             # tests/kernels/test_kernels.py:113-115
+
+
+def _capped(name, got, want, rel_tol, abs_terms, cap) -> float:
+    """Raise unless ``|got - want| <= min(rel_tol * abs_terms, cap (1 +
+    |want|))``, plus one bf16 step for a bf16 output; the largest
+    absolute difference."""
+    tol = torch.minimum(rel_tol * abs_terms.double(),
+                        cap * (1 + want.double().abs()))
+    if want.dtype == torch.bfloat16:
+        tol = tol + BF16_STEP * want.double().abs()
+    return require_close(name, got, want, tol)
+
+
+def attention_operands(rng, B, H, KV, Sq, Skv, hd, dtype, device):
+    """q [B, H, Sq, hd], k and v [B, KV, Skv, hd], standard normal."""
+    return (random_floats(rng, (B, H, Sq, hd), dtype, device),
+            random_floats(rng, (B, KV, Skv, hd), dtype, device),
+            random_floats(rng, (B, KV, Skv, hd), dtype, device))
+
+
+def attention_tolerance(q, k, v, causal, window, q_offset):
+    """``(rel, abs_terms)``: each output lies within ``rel * abs_terms``
+    of the plain version's. ``abs_terms`` is the plain version run on
+    ``|v|``, the weighted sum of |v| each output is a normalised sum of.
+    A score is a float32 sum of hd terms, off by at most ``gamma(hd)
+    s_abs`` in each implementation (``s_abs`` = scale * the largest
+    ||q row|| * the largest ||k row||, Cauchy-Schwarz); a shift d of the
+    scores moves each normalised weight by a factor within exp(+-2d);
+    the sums l and acc add ``gamma(Skv)`` each; exp and the division a
+    few ulps. Two implementations double the per-implementation terms."""
+    hd, Skv = q.shape[-1], k.shape[2]
+    s_abs = fa.scale_of(hd) * q.float().norm(dim=-1).max().item() * \
+        k.float().norm(dim=-1).max().item()
+    rel = 4 * gamma(hd) * s_abs + 4 * gamma(Skv) + 16 * U32
+    terms = fa.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                     causal=causal, window=window,
+                                     q_offset=q_offset)
+    return rel, terms
+
+
+def compare_attention(got, q, k, v, *, causal=True, window=0,
+                      q_offset=0) -> float:
+    """A ``flash_attention`` output against the plain version on the
+    same inputs, within :func:`attention_tolerance` capped at the JAX
+    test's 2e-3 (plus one bf16 step for bf16). A row that sees no key
+    must be 0 in both (its tolerance is 0)."""
+    _no_tf32(q.device)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    rel, terms = attention_tolerance(q, k, v, causal, window, q_offset)
+    return _capped("flash_attention", got, want, rel, terms, ATTENTION_TOL)
+
+
+def check_attention(rng, B, H, KV, Sq, Skv, hd, device, dtype=torch.float32,
+                    causal=True, window=0, q_offset=0) -> float:
+    q, k, v = attention_operands(rng, B, H, KV, Sq, Skv, hd, dtype, device)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    return compare_attention(got, q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+
+
+def ssd_operands(rng, Bz, S, H, P, N, G, device, dtype=torch.float32):
+    """The reference test's inputs: x [Bz, S, H, P] standard normal (in
+    ``dtype``), dt ~ U(0.001, 0.1), A = -exp(N(0, 0.5)) per head, B and C
+    [Bz, S, G, N] standard normal; all but x float32."""
+    x = random_floats(rng, (Bz, S, H, P), dtype, device)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.1, (Bz, S, H)).astype(
+        np.float32)).to(device)
+    A = -torch.from_numpy(np.exp(rng.normal(0, 0.5, (H,))).astype(
+        np.float32)).to(device)
+    return (x, dt, A, random_floats(rng, (Bz, S, G, N), torch.float32, device),
+            random_floats(rng, (Bz, S, G, N), torch.float32, device))
+
+
+def ssd_tolerance(x, da, dt, B, C, chunk):
+    """``(rel, y_terms, state_terms)``: y and the state lie within ``rel``
+    times the plain version run on |x|, |dt|, |B|, |C| (which bounds the
+    sum of absolute terms of every output) of the plain version's. Per
+    implementation: the products C.B and C h (``gamma(N)`` each), the
+    chunk's sum (``gamma(cs)``), the cumsum inside each exp (its error is
+    at most ``gamma(cs) cs max|da|``, doubled by the exp of a
+    difference), a few ulps of exp and products, and the state carrying
+    ``gamma(cs) + gamma(N) + 8 u`` more from every chunk."""
+    S, N = x.shape[1], B.shape[-1]
+    cs = ss.chunk_size(S, chunk)
+    nc = S // cs
+    da_max = da.abs().max().item() if da.numel() else 0.0
+    one = (2 * gamma(N) + gamma(cs) + 2 * gamma(cs) * cs * da_max
+           + 8 * U32 + nc * (gamma(cs) + gamma(N) + 8 * U32))
+    y_terms, s_terms = ss.ssd_scan_plain(x.float().abs(), da, dt.abs(),
+                                         B.abs(), C.abs(), chunk=chunk)
+    return 2 * one, y_terms, s_terms
+
+
+def compare_ssd(got, x, dt, A, B, C, *, chunk=256) -> float:
+    """An ``ssd_scan_op`` output (y, state [Bz, H, N, P]) against the
+    plain version on the same inputs, within :func:`ssd_tolerance`
+    capped at the JAX test's 3e-3 (plus one bf16 step for a bf16 y)."""
+    _no_tf32(x.device)
+    ins = ss.kernel_inputs(x, dt, A, B, C)
+    want_y, want_s = ss.ssd_scan_plain(*ins, chunk=chunk)
+    rel, y_terms, s_terms = ssd_tolerance(*ins, chunk)
+    return max(_capped("ssd_scan y", got[0], want_y, rel, y_terms, SSD_TOL),
+               _capped("ssd_scan state", got[1], want_s, rel, s_terms,
+                       SSD_TOL))
+
+
+def check_ssd(rng, Bz, S, H, P, N, G, chunk, device,
+              dtype=torch.float32) -> float:
+    args = ssd_operands(rng, Bz, S, H, P, N, G, device, dtype)
+    return compare_ssd(ops.ssd_scan_op(*args, chunk=chunk), *args,
+                       chunk=chunk)
+
+
 MATMUL_TYPES = ((torch.float32, None), (torch.bfloat16, None),
                 (torch.bfloat16, torch.float32), (torch.int8, None))
 CONV_TYPES = ((torch.int32, 0), (torch.int32, 4), (torch.int32, 31),
               (torch.int32, 40), (torch.float32, 0), (torch.bfloat16, 0))
+#: q / x dtypes every attention and SSD case runs in
+LM_TYPES = (torch.float32, torch.bfloat16)
 
 
 def compute_kernel_cases() -> Sequence[Tuple[str, dict]]:
     """``(kernel, shape)``: odd shapes (nothing a multiple of a tile;
     images smaller than a filter; FFT rows from 1 point to the 16384
-    that needs the opt-in shared memory) for the four compute kernels."""
+    that needs the opt-in shared memory) for the four compute kernels,
+    then for attention and the SSD scan."""
     return (
         ("spm_matmul", dict(M=1, K=1, N=1)),
         ("spm_matmul", dict(M=33, K=65, N=17)),
@@ -456,6 +590,23 @@ def compute_kernel_cases() -> Sequence[Tuple[str, dict]]:
         ("het_mimd", dict(H=32, W=32, F=3, nb=4, n=128, m=32, k=48, p=16)),
         ("het_mimd", dict(H=35, W=19, F=4, nb=5, n=8192, m=33, k=17,
                           p=70)),
+        # no length a multiple of a 64 tile; G = 1, 2, 5; every mask;
+        # rows that see no key (q_offset 80, window 8); hd 1 to 128
+        ("flash_attention", dict(B=2, H=4, KV=2, Sq=100, Skv=100, hd=64)),
+        ("flash_attention", dict(B=1, H=5, KV=1, Sq=77, Skv=77, hd=96,
+                                 causal=False)),
+        ("flash_attention", dict(B=1, H=10, KV=2, Sq=130, Skv=130, hd=128,
+                                 window=33)),
+        ("flash_attention", dict(B=1, H=4, KV=2, Sq=32, Skv=64, hd=16,
+                                 window=8, q_offset=80)),
+        ("flash_attention", dict(B=1, H=2, KV=1, Sq=65, Skv=200, hd=40,
+                                 q_offset=135)),
+        ("flash_attention", dict(B=1, H=3, KV=3, Sq=1, Skv=1, hd=1)),
+        # chunks below, at and above a 64 tile; P and N past one tile
+        ("ssd_scan", dict(Bz=2, S=128, H=4, P=16, N=8, G=2, chunk=32)),
+        ("ssd_scan", dict(Bz=1, S=100, H=3, P=20, N=12, G=1, chunk=256)),
+        ("ssd_scan", dict(Bz=1, S=192, H=2, P=80, N=70, G=2, chunk=96)),
+        ("ssd_scan", dict(Bz=1, S=1, H=1, P=1, N=1, G=1, chunk=1)),
     )
 
 
@@ -470,4 +621,10 @@ def check_compute_case(rng, kernel: str, shape: dict, device) -> float:
                               **shape) for dt, s in CONV_TYPES)
     if kernel == "spm_fft":
         return check_fft(rng, device=device, **shape)
+    if kernel == "flash_attention":
+        return max(check_attention(rng, device=device, dtype=dt, **shape)
+                   for dt in LM_TYPES)
+    if kernel == "ssd_scan":
+        return max(check_ssd(rng, device=device, dtype=dt, **shape)
+                   for dt in LM_TYPES)
     return check_het_mimd(rng, device=device, **shape)

@@ -1,5 +1,5 @@
-"""On-card microbenchmarks of the paper's compute kernels: the port of
-the matmul / conv2d / FFT rows of the reference's
+"""On-card microbenchmarks of the compute kernels: the port of the
+matmul / conv2d / FFT / attention / SSD rows of the reference's
 ``benchmarks/kernel_micro.py`` and of the het-MIMD stage of
 ``examples/composite_workload.py``.
 
@@ -33,10 +33,12 @@ import torch
 import torch.nn.functional as tnf
 
 from repro_torch.kernels import checks, ops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import het_mimd as hm
 from repro_torch.kernels import spm_conv2d as sc
 from repro_torch.kernels import spm_fft as sf
 from repro_torch.kernels import spm_matmul as sm
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.common import resolve_device
 
 # NVIDIA H100 SXM data sheet, dense rates at the 700 W limit. The data
@@ -53,7 +55,7 @@ PEAK_OPS_PER_S = {
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": torch.int8, "int32": torch.int32}
 MODULES = {"spm_matmul": sm, "spm_conv2d": sc, "spm_fft": sf,
-           "het_mimd": hm}
+           "het_mimd": hm, "flash_attention": fa, "ssd_scan": ss}
 
 
 @dataclass(frozen=True)
@@ -77,6 +79,14 @@ REFERENCE = (
              "benchmarks/kernel_micro.py: spm_conv2d 256^2 3x3"),
     Workload("ref_fft_64x256", "spm_fft", dict(B=64, n=256),
              "benchmarks/kernel_micro.py: spm_fft 64x256"),
+    Workload("ref_attention_1x4x1024x64", "flash_attention",
+             dict(B=1, H=4, KV=2, Sq=1024, Skv=1024, hd=64,
+                  dtype="bfloat16"),
+             "benchmarks/kernel_micro.py: flash_attention 1k causal"),
+    Workload("ref_ssd_2x512x4x32", "ssd_scan",
+             dict(Bz=2, S=512, H=4, P=32, N=16, G=1, chunk=128,
+                  dtype="float32"),
+             "benchmarks/kernel_micro.py: ssd_scan 2x512x4x32"),
 )
 
 CARD = (
@@ -109,6 +119,22 @@ CARD = (
              dict(H=1024, W=1024, F=3, nb=1024, n=256, m=1024, k=1024,
                   p=1024),
              "the same composite at card scale"),
+    Workload("attn_llama3.2-1b_causal_4096", "flash_attention",
+             dict(B=2, H=32, KV=8, Sq=4096, Skv=4096, hd=64,
+                  dtype="bfloat16"),
+             "configs/llama3_2_1b.py at the train_4k length: causal GQA"),
+    Workload("attn_hymba1.5b_swa_8192", "flash_attention",
+             dict(B=1, H=25, KV=5, Sq=8192, Skv=8192, hd=64, window=2048,
+                  dtype="bfloat16"),
+             "configs/hymba_1_5b.py: sliding window 2048, G = 5"),
+    Workload("attn_mixtral_prefill_cont", "flash_attention",
+             dict(B=1, H=32, KV=8, Sq=512, Skv=4096, hd=128, window=4096,
+                  q_offset=3584, dtype="bfloat16"),
+             "configs/mixtral_8x7b.py: a chunked-prefill continuation"),
+    Workload("ssd_mamba2-1.3b_4096", "ssd_scan",
+             dict(Bz=2, S=4096, H=64, P=64, N=128, G=1, chunk=256,
+                  dtype="float32"),
+             "configs/mamba2_1_3b.py (d_inner 4096 / headdim 64) at 4k"),
 )
 
 
@@ -133,6 +159,22 @@ def card_settings() -> None:
 # inputs, runs and comparisons
 # ---------------------------------------------------------------------------
 
+def attention_masks(shape: dict) -> dict:
+    """An attention workload's mask arguments (causal unless it says
+    otherwise, no window, no offset)."""
+    return dict(causal=shape.get("causal", True),
+                window=shape.get("window", 0),
+                q_offset=shape.get("q_offset", 0))
+
+
+def _masks(x: dict) -> dict:
+    return {key: x[key] for key in ("causal", "window", "q_offset")}
+
+
+def _ssd(x: dict) -> tuple:
+    return x["x"], x["dt"], x["A"], x["B"], x["C"]
+
+
 def make_inputs(w: Workload, rng: np.random.Generator, device) -> dict:
     s = w.shape
     if w.kernel == "spm_matmul":
@@ -148,6 +190,15 @@ def make_inputs(w: Workload, rng: np.random.Generator, device) -> dict:
                                             torch.float32, device),
                     im=checks.random_floats(rng, (s["B"], s["n"]),
                                             torch.float32, device))
+    if w.kernel == "flash_attention":
+        q, k, v = checks.attention_operands(
+            rng, s["B"], s["H"], s["KV"], s["Sq"], s["Skv"], s["hd"],
+            DTYPES[s["dtype"]], device)
+        return dict(q=q, k=k, v=v, **attention_masks(s))
+    if w.kernel == "ssd_scan":
+        return dict(zip(("x", "dt", "A", "B", "C"), checks.ssd_operands(
+            rng, s["Bz"], s["S"], s["H"], s["P"], s["N"], s["G"], device,
+            DTYPES[s["dtype"]])), chunk=s["chunk"])
     names = ("img", "filt", "fre", "fim", "A", "B")
     return dict(zip(names, checks.het_mimd_operands(
         rng, s["H"], s["W"], s["F"], s["nb"], s["n"], s["m"], s["k"],
@@ -163,6 +214,10 @@ def run_kernel(w: Workload, x: dict):
         return ops.conv2d_op(x["img"], x["filt"], shift=x["shift"])
     if w.kernel == "spm_fft":
         return ops.fft_op(x["re"], x["im"])
+    if w.kernel == "flash_attention":
+        return ops.attention_op(x["q"], x["k"], x["v"], **_masks(x))
+    if w.kernel == "ssd_scan":
+        return ops.ssd_scan_op(*_ssd(x), chunk=x["chunk"])
     return ops.het_mimd_composite(x["img"], x["filt"], x["fre"], x["fim"],
                                   x["A"], x["B"])
 
@@ -174,6 +229,11 @@ def run_plain(w: Workload, x: dict):
         return sc.spm_conv2d_plain(x["img"], x["filt"], shift=x["shift"])
     if w.kernel == "spm_fft":
         return sf.spm_fft_plain(x["re"], x["im"])
+    if w.kernel == "flash_attention":
+        return fa.flash_attention_plain(x["q"], x["k"], x["v"], **_masks(x))
+    if w.kernel == "ssd_scan":
+        return ss.ssd_scan_plain(*ss.kernel_inputs(*_ssd(x)),
+                                 chunk=x["chunk"])
     return hm.het_mimd_composite_plain(x["img"], x["filt"], x["fre"],
                                        x["fim"], x["A"], x["B"])
 
@@ -187,14 +247,36 @@ def compare_plain(w: Workload, x: dict, out) -> float:
         return checks.compare_conv(out, x["img"], x["filt"], x["shift"])
     if w.kernel == "spm_fft":
         return checks.compare_fft(*out, x["re"], x["im"])
+    if w.kernel == "flash_attention":
+        return checks.compare_attention(out, x["q"], x["k"], x["v"],
+                                        **_masks(x))
+    if w.kernel == "ssd_scan":
+        return checks.compare_ssd(out, *_ssd(x), chunk=x["chunk"])
     return checks.compare_het_mimd(out, x["img"], x["filt"], x["fre"],
                                    x["fim"], x["A"], x["B"])
+
+
+def attention_library_call(q, k, v, causal, window, q_offset):
+    """``F.scaled_dot_product_attention`` computing the kernel's function
+    (GQA through ``enable_gqa``): ``is_causal`` where the mask is plain
+    causal with Sq = Skv and no offset, else an explicit boolean mask
+    (``is_causal`` aligns the diagonal top-left). Rows that see no key
+    differ (SDPA gives NaN there); the card workloads have none."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    if causal and not window and not q_offset and Sq == Skv:
+        return lambda: tnf.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    mask = fa.visible(q_offset + torch.arange(Sq, device=q.device),
+                      torch.arange(Skv, device=q.device), causal, window)
+    return lambda: tnf.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
 
 
 def library_call(w: Workload, x: dict) -> Optional[Callable[[], object]]:
     """One PyTorch call computing the workload's function (three for the
     composite, one per hart), or None where PyTorch has none: an int32
-    convolution, an int8 product outside ``torch._int_mm``'s shapes."""
+    convolution, an int8 product outside ``torch._int_mm``'s shapes, the
+    SSD scan."""
     if w.kernel == "spm_matmul":
         a, b = x["a"], x["b"]
         if a.dtype != torch.int8:
@@ -213,6 +295,10 @@ def library_call(w: Workload, x: dict) -> Optional[Callable[[], object]]:
     if w.kernel == "spm_fft":
         z = torch.complex(x["re"], x["im"])
         return lambda: torch.fft.fft(z)
+    if w.kernel == "flash_attention":
+        return attention_library_call(x["q"], x["k"], x["v"], **_masks(x))
+    if w.kernel == "ssd_scan":
+        return None
     i4, f4 = x["img"][None, None], x["filt"][None, None]
     z, A, B = torch.complex(x["fre"], x["fim"]), x["A"], x["B"]
     return lambda: (tnf.conv2d(i4, f4), torch.fft.fft(z), torch.matmul(A, B))
@@ -227,10 +313,39 @@ def _fft_cost(B: int, n: int) -> Tuple[int, int]:
     return 16 * B * n + 8 * max(n - 1, 1), 5 * B * n * (n.bit_length() - 1)
 
 
+def _attention_cost(s: dict) -> Tuple[int, List[Tuple[int, str]]]:
+    # q, k, v read and o written once; the two products over the pairs
+    # each query row sees, at the input type's tensor-core rate
+    size = torch.empty((), dtype=DTYPES[s["dtype"]]).element_size()
+    B, H, KV, Sq, Skv, hd = (s[c] for c in ("B", "H", "KV", "Sq", "Skv",
+                                            "hd"))
+    m = attention_masks(s)
+    pairs = fa.visible_pairs(Sq, Skv, m["causal"], m["window"],
+                             m["q_offset"])
+    key = "bf16" if s["dtype"] == "bfloat16" else "fp32"
+    return ((2 * B * H * Sq + 2 * B * KV * Skv) * hd * size,
+            [(4 * B * H * pairs * hd, key)])
+
+
+def _ssd_cost(s: dict) -> Tuple[int, List[Tuple[int, str]]]:
+    # x, da, dt and the head-broadcast B, C the kernel reads, y and the
+    # state written; the four float32 products of each chunk, the two
+    # cs x cs ones over the j <= i half the function needs
+    size = torch.empty((), dtype=DTYPES[s["dtype"]]).element_size()
+    Bz, S, H, P, N = (s[c] for c in ("Bz", "S", "H", "P", "N"))
+    cs = min(s["chunk"], S)
+    tri = cs * (cs + 1) // 2
+    per_chunk = 2 * tri * (N + P) + 4 * cs * N * P
+    nbytes = Bz * S * H * (2 * P * size + 2 * 4 + 2 * N * 4) \
+        + Bz * H * N * P * 4
+    return nbytes, [(Bz * H * (S // cs) * per_chunk, "fp32")]
+
+
 def cost(w: Workload) -> Tuple[int, List[Tuple[int, str]]]:
     """``(bytes, [(operations, peak key), ...])``: each input read once
     and each output written once; a multiply-add counts as two
-    operations, an FFT butterfly as ten."""
+    operations, an FFT butterfly as ten; attention and the SSD scan count
+    their products only (not exp)."""
     s = w.shape
     if w.kernel == "spm_matmul":
         dt = DTYPES[s["dtype"]]
@@ -249,6 +364,10 @@ def cost(w: Workload) -> Tuple[int, List[Tuple[int, str]]]:
     if w.kernel == "spm_fft":
         nbytes, flops = _fft_cost(s["B"], s["n"])
         return nbytes, [(flops, "fp32")]
+    if w.kernel == "flash_attention":
+        return _attention_cost(s)
+    if w.kernel == "ssd_scan":
+        return _ssd_cost(s)
     H, W, F, m, k, p = (s[c] for c in ("H", "W", "F", "m", "k", "p"))
     fft_bytes, fft_flops = _fft_cost(s["nb"], s["n"])
     conv_bytes = 4 * ((H + F - 1) * (W + F - 1) + F * F + H * W)
@@ -287,7 +406,8 @@ def timed(fn, reps: int, match: Optional[str] = None) -> dict:
     ``device_ms`` from a ``torch.profiler`` trace of ``reps`` more calls:
     the device time of events whose name contains ``match`` (every
     device event when None), or None when the trace holds no device
-    time."""
+    time; ``top_kernel`` names the device event that took the most (which
+    backend a library call ran on)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -305,9 +425,12 @@ def timed(fn, reps: int, match: Optional[str] = None) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(device_us(ev) for ev in prof.key_averages()
-             if match is None or match in ev.key)
-    return dict(call_ms=call_ms, device_ms=us / 1e3 / reps or None)
+    events = [(device_us(ev), ev.key) for ev in prof.key_averages()
+              if match is None or match in ev.key]
+    us = sum(t for t, _ in events)
+    top = max(events, default=(0.0, None))
+    return dict(call_ms=call_ms, device_ms=us / 1e3 / reps or None,
+                top_kernel=top[1] if top[0] else None)
 
 
 def times(kernel: dict, plain: dict, library: Optional[dict] = None) -> dict:
@@ -322,7 +445,8 @@ def times(kernel: dict, plain: dict, library: Optional[dict] = None) -> dict:
                library_call_ms=None)
     if library is not None:
         out.update(library_ms=library["device_ms"] or library["call_ms"],
-                   library_call_ms=library["call_ms"])
+                   library_call_ms=library["call_ms"],
+                   library_kernel=library["top_kernel"])
     return out
 
 

@@ -6,18 +6,19 @@ Every function dispatches on its tensors' device: CUDA tensors launch
 the port's hand-written kernels (``csrc/``), CPU tensors run the
 kernels' plain PyTorch versions. PyTorch runs eagerly, so there is no
 ``jit``; the reference's TPU tiling knobs (``bm``/``bn``/``bk``,
-``block_rows``, ``batch_block``) and ``interpret`` have no counterpart
-and are not taken. ``attention_op`` and ``ssd_scan_op`` come with the
-port of flash attention and the SSD scan.
+``block_rows``, ``batch_block``, ``bq``/``bk``) and ``interpret`` have
+no counterpart and are not taken.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import kdotp as _kdotp
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_vops import fused_elementwise_call
 from repro_torch.kernels.het_mimd import het_mimd_composite  # noqa: F401
 from repro_torch.kernels.spm_conv2d import spm_conv2d
 from repro_torch.kernels.spm_fft import spm_fft
 from repro_torch.kernels.spm_matmul import spm_matmul
+from repro_torch.kernels.ssd_scan import kernel_inputs, ssd_scan
 
 
 # ---- KVI element-wise intrinsics (single-op / fused slot programs) ---------
@@ -95,3 +96,18 @@ kvred = _kdotp.kvred
 matmul_op = spm_matmul
 conv2d_op = spm_conv2d
 fft_op = spm_fft
+
+
+def attention_op(q, k, v, *, causal: bool = True, window: int = 0,
+                 q_offset: int = 0):
+    """q [B, H, Sq, hd], k / v [B, KV, Skv, hd] -> [B, H, Sq, hd]: one
+    launch of the flash-attention kernel."""
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
+
+
+def ssd_scan_op(x, dt, A, B, C, *, chunk: int = 256):
+    """Model-facing wrapper: x [Bz,S,H,P], dt [Bz,S,H], A [H],
+    B/C [Bz,S,G,N] (GQA-style groups) — broadcasts groups to heads,
+    precomputes da = dt*A, calls the kernel (one launch)."""
+    return ssd_scan(*kernel_inputs(x, dt, A, B, C), chunk=chunk)

@@ -3,8 +3,11 @@ copy of the reference's ``repro/kernels/ref.py``.
 
 Each is the direct formula, written apart from the kernels' plain
 versions, and runs on the CPU (the integer matmul needs PyTorch's CPU
-integer product). ``flash_attention_ref`` and ``ssd_scan_ref`` come with
-the port of ``models/`` (attention and SSD), whose math they share.
+integer product). Where the model modules already define the math
+(attention, SSD), the oracle delegates to them:
+``flash_attention_ref`` to :func:`repro_torch.models.layers.attention_ref`
+and ``ssd_scan_ref`` to the per-step recurrence of
+:mod:`repro_torch.models.ssm`.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels.fused_vops import SlotOp, apply_vop
+from repro_torch.models.layers import attention_ref
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor,
@@ -51,6 +55,36 @@ def fft_ref(re: torch.Tensor, im: torch.Tensor
     """``torch.fft.fft`` of the complex64 rows."""
     y = torch.fft.fft(torch.complex(re.float(), im.float()), dim=-1)
     return y.real.float(), y.imag.float()
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Kernel layout [B, H, S, hd] -> delegates to the models.layers
+    oracle (a row with no visible key: the mean of v)."""
+    out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window,
+                        q_offset=q_offset)
+    return out.transpose(1, 2)
+
+
+def ssd_scan_ref(x: torch.Tensor, da: torch.Tensor, dt: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel signature (head-broadcast B/C, da = dt*A) -> the models.ssm
+    recurrence, one step at a time. Returns (y, state [Bz,H,N,P])."""
+    Bz, S, H, P = x.shape
+    N = B.shape[-1]
+    state = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(da[:, t].float())                          # [Bz,H]
+        upd = (dt[:, t].float()[..., None] * x[:, t].float()
+               )[..., None] * B[:, t].float()[:, :, None, :]
+        state = state * a[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, C[:, t].float()))
+    y = torch.stack(ys, dim=1).to(x.dtype)                       # [Bz,S,H,P]
+    return y, state.transpose(-1, -2).contiguous()               # [Bz,H,N,P]
 
 
 def vops_ref(program: Sequence[SlotOp], inputs: Sequence[torch.Tensor],

@@ -110,7 +110,9 @@ def test_backend_on_the_card_equals_cpu(card):
 
 
 VARIANTS = {"spm_matmul": len(checks.MATMUL_TYPES),
-            "spm_conv2d": len(checks.CONV_TYPES), "spm_fft": 1, "het_mimd": 1}
+            "spm_conv2d": len(checks.CONV_TYPES), "spm_fft": 1, "het_mimd": 1,
+            "flash_attention": len(checks.LM_TYPES),
+            "ssd_scan": len(checks.LM_TYPES)}
 
 
 @pytest.mark.parametrize("case", checks.compute_kernel_cases(),
@@ -126,7 +128,9 @@ def test_compute_kernel_equals_plain_at_odd_shapes(card, case):
 
 
 @pytest.mark.parametrize("name", ["matmul_f32_2048", "conv_int32_2048_f11",
-                                  "fft_4096x1024", "composite_1024"])
+                                  "fft_4096x1024", "composite_1024",
+                                  "attn_hymba1.5b_swa_8192",
+                                  "ssd_mamba2-1.3b_4096"])
 def test_compute_kernel_equals_plain_at_card_scale(card, name):
     w = next(w for w in micro.CARD if w.name == name)
     x = micro.make_inputs(w, np.random.default_rng(7), card)
@@ -164,3 +168,28 @@ def test_compute_kernel_launch_errors_raise(card):
     with pytest.raises(ValueError, match="exceeds"):
         sf.spm_fft(torch.zeros((1, 32768), device=card),
                    torch.zeros((1, 32768), device=card))
+
+
+def test_lm_kernel_launch_errors_raise(card):
+    """Launches the attention and SSD kernels refuse return the CUDA
+    error, and the wrappers raise before them; nothing falls back."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    x = torch.zeros((1, 2, 8, 200), device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fa._library().flash_attention_launch(
+        0, x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 1, 2, 1,
+        8, 8, 200, 1, 0, 0, 0.1, stream)
+    assert rc != 0
+    with pytest.raises(ValueError, match="exceeds 128"):
+        fa.flash_attention(x, x[:, :1], x[:, :1])
+    rc = ss._library().ssd_scan_launch(
+        0, x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), 1, 100, 1, 4, 4, 32,
+        stream)
+    assert rc != 0                                  # S not a multiple of cs
+    big = torch.zeros((1, 256, 1, 128), device=card)
+    dt = torch.zeros((1, 256, 1), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        ss.ssd_scan(big, dt, dt, torch.zeros((1, 256, 1, 256), device=card),
+                    torch.zeros((1, 256, 1, 256), device=card))

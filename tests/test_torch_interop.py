@@ -131,7 +131,9 @@ def test_port_sources_import_neither_jax_nor_repro():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.kvi, repro_torch.kernels.checks\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
-            "import repro_torch.kernels.micro\n"
+            "import repro_torch.kernels.micro, repro_torch.models\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.ssd_scan\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

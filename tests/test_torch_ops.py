@@ -139,6 +139,29 @@ def test_roofline_terms():
                                            + 2 * 1024 ** 3)
 
 
+def test_roofline_terms_of_attention_and_the_ssd_scan():
+    """Attention counts its two products over the visible pairs at the
+    bf16 tensor-core rate; the SSD scan its four float32 products, the
+    two cs x cs ones over j <= i, at the FP32 rate."""
+    by = {w.name: micro.bound(*micro.cost(w)) for w in micro.CARD}
+    llama = by["attn_llama3.2-1b_causal_4096"]
+    assert llama["ops"] == 4 * 2 * 32 * (4096 * 4097 // 2) * 64
+    assert llama["bytes"] == (2 * 2 * 32 * 4096 + 2 * 2 * 8 * 4096) * 64 * 2
+    assert llama["bound_by"] == "operations"
+    np.testing.assert_allclose(llama["bound_ms"], llama["ops"] / 989e12 * 1e3)
+    hymba = by["attn_hymba1.5b_swa_8192"]
+    assert hymba["ops"] == 4 * 25 * (2048 * 2049 // 2 + 6144 * 2048) * 64
+    mixtral = by["attn_mixtral_prefill_cont"]
+    assert mixtral["ops"] == 4 * 32 * sum(range(3585, 4097)) * 128
+    ssd = by["ssd_mamba2-1.3b_4096"]
+    per_chunk = 2 * (256 * 257 // 2) * (128 + 64) + 4 * 256 * 128 * 64
+    assert ssd["ops"] == 2 * 64 * 16 * per_chunk
+    assert ssd["bytes"] == 2 * 4096 * 64 * (2 * 64 * 4 + 8 + 2 * 128 * 4) \
+        + 2 * 64 * 128 * 64 * 4
+    assert ssd["bound_by"] == "operations"
+    np.testing.assert_allclose(ssd["bound_ms"], ssd["ops"] / 67e12 * 1e3)
+
+
 def test_micro_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -174,3 +197,35 @@ def test_chip_smoke_compute_phase_rehearsed_on_the_cpu(capsys):
     assert launches == dict.fromkeys(micro.MODULES, 0)
     assert err == dict.fromkeys(micro.MODULES, 0.0)
     assert capsys.readouterr().out.count("[slice2]") == len(tiny)
+
+
+def test_chip_smoke_lm_phase_rehearsed_on_the_cpu(capsys):
+    """The slice-3 run of ``chip_smoke.run_compute_slice`` at tiny
+    shapes on the CPU: attention (a window, an offset, G = 5, bf16) and
+    the SSD scan equal their plain versions and their float64 numpy
+    formulas, and nothing counts as a launch."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    W = micro.Workload
+    tiny = [
+        W("attn", "flash_attention", dict(B=2, H=4, KV=2, Sq=70, Skv=70,
+                                          hd=16, dtype="bfloat16"), ""),
+        W("attn_swa", "flash_attention", dict(B=1, H=5, KV=1, Sq=40,
+                                              Skv=100, hd=32, window=30,
+                                              q_offset=60,
+                                              dtype="float32"), ""),
+        W("ssd", "ssd_scan", dict(Bz=2, S=96, H=4, P=8, N=6, G=2, chunk=32,
+                                  dtype="float32"), "")]
+    inputs, launches, err = smoke.run_compute_slice(
+        "cpu", np.random.default_rng(0), tiny, tag="slice3")
+    assert set(inputs) == {w.name for w in tiny}
+    assert launches == dict.fromkeys(micro.MODULES, 0)
+    assert err == dict.fromkeys(micro.MODULES, 0.0)
+    assert capsys.readouterr().out.count("[slice3]") == len(tiny)
+    assert {k for k, _, _ in smoke.KERNELS} == set(micro.MODULES) | {
+        "fused_vops", "kdotp"}
+    assert len(smoke.KERNELS) == 8
+    assert set(smoke.SLICE2) | set(smoke.SLICE3) == set(micro.MODULES)
+    assert {w.kernel for w in micro.CARD} == set(micro.MODULES)
