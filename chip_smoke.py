@@ -11,9 +11,13 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
 2. check   — each kernel against its plain PyTorch version on the same
    CUDA tensors: slice 1's at the KVI path's shapes, bit for bit; the
    four compute kernels, flash attention and the SSD scan at odd shapes
-   (no dimension a multiple of a tile), integers bit for bit, floats
-   within error bounds; then TF32 products (cuBLAS with TF32 allowed),
-   which the float32 matmul check must reject;
+   (no dimension a multiple of a tile; one matmul of whole tiles),
+   integers bit for bit, floats within error bounds, with the per-path
+   launch counters showing the bf16 / int8 products and bf16 attention
+   on the tensor-core kernels and float32 on the CUDA-core ones; an
+   int8 product whose int32 sums wrap (no saturation); then TF32
+   products (cuBLAS with TF32 allowed), which the float32 matmul check
+   must reject;
 3. slice 1 — the KVI main path at the paper's sizes through
    ``get_backend("torch").run_workload``: conv2d 32x32 (F = 3 and 11),
    FFT-256, streamed matmul 64x64 (kdotp and kdotpps), pipeline_demo and
@@ -26,7 +30,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    4096 x 1024, the het-MIMD composite at the paper's size and at 1024),
    each output held against its plain version on the same tensors and
    against an independent numpy formula (int64 sums, float64 products
-   and FFTs); the launch counters must show one launch per call;
+   and FFTs); the launch counters must show one launch per call, on the
+   tensor-core kernel for every bf16 and int8 product;
    slice 3 — ``ops.attention_op`` and ``ops.ssd_scan_op`` at the widths
    of the repo's configs (llama3.2-1b causal 4096, hymba-1.5b window
    2048 over 8192, a mixtral prefill continuation, mamba2-1.3b's SSD at
@@ -36,11 +41,13 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
 5. time    — each kernel at main-path shapes with ``torch.profiler`` and
    CUDA events, beside its plain version, its bound and (where one
    exists) a PyTorch library call computing the same function; for the
-   compute and LM kernels every workload of phase 4.
+   compute and LM kernels every workload of phase 4, with the path that
+   ran and, for a tensor-core product, the time of its operand glue.
 
 Any failed check raises, and the script exits non-zero. The last lines
-are the card's name and power limit, a JSON object of kernel numbers and
-``{"ok": true, "device": {...}}``.
+are the card's name and power limit, a JSON object of kernel numbers
+(``spm_matmul`` and ``flash_attention`` with their main-path launches by
+path) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -469,13 +476,23 @@ def formula_check(w, x, out) -> float:
                                False))
 
 
+def path_counts():
+    """Launches of the two kernels with a tensor-core path, by path."""
+    from repro_torch.kernels import micro
+    return {k: {"tensor_cores": micro.MODULES[k].tc_launch_count,
+                "cuda_cores": micro.MODULES[k].launch_count
+                - micro.MODULES[k].tc_launch_count} for k in TC_KERNELS}
+
+
 def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
     """Phase 4: every workload once through the intrinsics layer on
     ``device``, with the compute kernels' launch counters set to 0 just
     before and read just after; then each output against its plain
     version and its numpy formula. On the card each call must be one
-    launch of its kernel. Returns ``(inputs by name, launches, largest
-    difference from the plain version by kernel)``; ``tag`` heads the
+    launch of its kernel, and each bf16 / int8 product and bf16
+    attention call one of the tensor-core kernel (float32 the CUDA-core
+    one). Returns ``(inputs by name, launches, largest difference from
+    the plain version by kernel, launches by path)``; ``tag`` heads the
     log lines (``slice2``: the paper's kernels, ``slice3``: attention
     and the SSD scan)."""
     import torch
@@ -485,14 +502,24 @@ def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
         torch.cuda.synchronize()
     for mod in micro.MODULES.values():
         mod.launch_count = 0
+    for k in TC_KERNELS:
+        micro.MODULES[k].tc_launch_count = 0
     outs = {w.name: micro.run_kernel(w, inputs[w.name]) for w in workloads}
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     launches = {k: mod.launch_count for k, mod in micro.MODULES.items()}
+    paths = path_counts()
     calls = {k: sum(w.kernel == k for w in workloads) for k in micro.MODULES}
-    if torch.device(device).type == "cuda" and launches != calls:
-        raise AssertionError(f"launches {launches} are not one per call "
-                             f"{calls}")
+    tc_calls = {k: sum(w.kernel == k and micro.tensor_core_call(w)
+                       for w in workloads) for k in TC_KERNELS}
+    if torch.device(device).type == "cuda":
+        if launches != calls:
+            raise AssertionError(f"launches {launches} are not one per call "
+                                 f"{calls}")
+        for k, n in tc_calls.items():
+            if paths[k]["tensor_cores"] != n:
+                raise AssertionError(f"{k}: {paths[k]} launches by path, "
+                                     f"but {n} calls take the tensor cores")
     err = dict.fromkeys(micro.MODULES, 0.0)
     for w in workloads:
         x, out = inputs[w.name], outs.pop(w.name)
@@ -503,7 +530,7 @@ def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
             f"its plain version (max abs diff {e_plain}) and its numpy "
             f"formula (max abs diff {e_formula})")
         del out
-    return inputs, launches, err
+    return inputs, launches, err, paths
 
 
 # ---------------------------------------------------------------------------
@@ -648,12 +675,26 @@ def main(argv=None) -> int:
                 scalar=3, mode=kd.WRAP32, **shape))
     checks.check_overflow_kdotpps(device)
     odd = dict.fromkeys(micro.MODULES, 0.0)
+    for k in TC_KERNELS:
+        micro.MODULES[k].launch_count = micro.MODULES[k].tc_launch_count = 0
+    want = {k: {"tensor_cores": 0, "cuda_cores": 0} for k in TC_KERNELS}
     for k, shape in checks.compute_kernel_cases():
         odd[k] = max(odd[k], checks.check_compute_case(rng, k, shape,
                                                        device))
+        if k in TC_KERNELS:
+            for path, n in checks.case_paths(k).items():
+                want[k][path] += n
     torch.cuda.synchronize()
+    odd_paths = path_counts()
+    if odd_paths != want:
+        raise AssertionError(f"launches by path at odd shapes {odd_paths}, "
+                             f"want {want}")
+    wrapped = checks.check_int8_wrap(device)
     print(f"[check] kernels equal their plain versions on the card: "
-          f"max abs err {err}; compute kernels at odd shapes {odd}")
+          f"max abs err {err}; compute kernels at odd shapes {odd}; "
+          f"launches by path there {json.dumps(odd_paths)}; int8 "
+          f"{checks.WRAP_M}x{checks.WRAP_K}x{checks.WRAP_N} of -128 wraps "
+          f"to {wrapped} (no saturation)")
     controls = []
     for M, K, N in TF32_CONTROLS:
         a, b = checks.matmul_operands(rng, M, K, N, torch.float32, device)
@@ -681,17 +722,22 @@ def main(argv=None) -> int:
           f"{launches}; card: {card}")
 
     # 4. slices 2 and 3 on the card ----------------------------------------
+    paths = {}
     for tag, kernels in (("slice2", SLICE2), ("slice3", SLICE3)):
         workloads = [w for w in micro.CARD if w.kernel in kernels]
-        ins, run_launches, run_err = run_compute_slice(
+        ins, run_launches, run_err, run_paths = run_compute_slice(
             device, rng, workloads, tag=tag,
             log=lambda m: print(f"{m}; card: {card}"))
         inputs.update(ins)
         for k in kernels:
             launches[k] = run_launches[k]
             err[k] = max(run_err[k], odd[k])
+            if k in TC_KERNELS:
+                paths[k] = run_paths[k]
         print(f"[{tag}] launches over the path (one per call): "
-              f"{ {k: run_launches[k] for k in kernels} }; card: {card}")
+              f"{ {k: run_launches[k] for k in kernels} }, by path "
+              f"{ {k: run_paths[k] for k in kernels if k in TC_KERNELS} }; "
+              f"card: {card}")
 
     # 5. kernel times --------------------------------------------------------
     times = {"fused_vops": time_fused(rng, device),
@@ -708,7 +754,8 @@ def main(argv=None) -> int:
         times[k] = dict(ws[SHOWN[k]], shape=SHOWN[k], workloads={
             name: {key: t[key] for key in (
                 "ms", "call_ms", "plain_ms", "library_ms", "library_kernel",
-                "bound_ms", "bound_by") if key in t}
+                "bound_ms", "bound_by", "path", "glue_ms", "glue_call_ms")
+                   if key in t}
             for name, t in ws.items()})
     kernels = []
     for name, source, replaces in KERNELS:
@@ -724,6 +771,8 @@ def main(argv=None) -> int:
         for extra in ("kvred", "workloads"):
             if extra in t:
                 entry[extra] = t[extra]
+        if name in paths:
+            entry["paths"] = paths[name]
         kernels.append(entry)
         print(f"[time] {name} {t['shape']}: {json.dumps(entry)}; "
               f"card: {card}")
@@ -758,6 +807,8 @@ KERNELS = (
 #: the kernels of phase 4's two driven runs
 SLICE2 = ("spm_matmul", "spm_conv2d", "spm_fft", "het_mimd")
 SLICE3 = ("flash_attention", "ssd_scan")
+#: the kernels with a tensor-core path beside the CUDA-core one
+TC_KERNELS = ("spm_matmul", "flash_attention")
 #: float32 matmul shapes (M, K, N) of the TF32 controls: odd, the paper
 #: composite's, composite_1024's and matmul_f32_2048's
 TF32_CONTROLS = ((33, 65, 17), (64, 64, 64), (1024, 1024, 1024),

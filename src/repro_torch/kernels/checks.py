@@ -338,6 +338,25 @@ def check_matmul(rng, M, K, N, dtype, device, out_dtype=None) -> float:
                           out_dtype)
 
 
+#: the int8 wrap case: M, N and K = 2^17 + 4096 terms of (-128)(-128)
+WRAP_M, WRAP_N, WRAP_K = 65, 17, (1 << 17) + 4096
+
+
+def check_int8_wrap(device) -> int:
+    """Constant -128 int8 operands, 65 x (2^17 + 4096) x 17: every exact
+    sum, K 16384 = 2^31 + 2^26, passes 2^31, so the int32 accumulator
+    wraps (a saturating one would stop at 2^31 - 1). The product must
+    equal the plain version and (K 16384 mod 2^32) read as int32, bit for
+    bit. Returns that value."""
+    a = torch.full((WRAP_M, WRAP_K), -128, dtype=torch.int8, device=device)
+    b = torch.full((WRAP_K, WRAP_N), -128, dtype=torch.int8, device=device)
+    got = sm.spm_matmul(a, b)
+    _require_equal("spm_matmul int8 wrap", got, sm.spm_matmul_plain(a, b))
+    wrapped = (WRAP_K * 16384 + (1 << 31)) % (1 << 32) - (1 << 31)
+    _require_equal("spm_matmul int8 wrap", got, torch.full_like(got, wrapped))
+    return wrapped
+
+
 def conv_operands(rng, H, W, F, dtype, device):
     """int32: |img| < 2^20, |filt| < 2^10, so sums overflow int32 from
     F = 3 on; floats: standard normal."""
@@ -571,8 +590,10 @@ def compute_kernel_cases() -> Sequence[Tuple[str, dict]]:
     """``(kernel, shape)``: odd shapes (nothing a multiple of a tile;
     images smaller than a filter; FFT rows from 1 point to the 16384
     that needs the opt-in shared memory) for the four compute kernels,
-    then for attention and the SSD scan."""
+    then for attention and the SSD scan; and one matmul of whole tiles,
+    which the tensor-core kernel takes without padding."""
     return (
+        ("spm_matmul", dict(M=256, K=512, N=384)),
         ("spm_matmul", dict(M=1, K=1, N=1)),
         ("spm_matmul", dict(M=33, K=65, N=17)),
         ("spm_matmul", dict(M=129, K=257, N=63)),
@@ -608,6 +629,20 @@ def compute_kernel_cases() -> Sequence[Tuple[str, dict]]:
         ("ssd_scan", dict(Bz=1, S=192, H=2, P=80, N=70, G=2, chunk=96)),
         ("ssd_scan", dict(Bz=1, S=1, H=1, P=1, N=1, G=1, chunk=1)),
     )
+
+
+def case_paths(kernel: str) -> dict:
+    """The launches of one :func:`check_compute_case` of ``kernel`` on
+    the card, by path: the matmul's bf16 and int8 variants and bf16
+    attention run the tensor-core kernels, float32 the CUDA-core ones;
+    the other kernels have CUDA-core kernels only."""
+    types = {"spm_matmul": [dt for dt, _ in MATMUL_TYPES],
+             "spm_conv2d": [dt for dt, _ in CONV_TYPES],
+             "flash_attention": LM_TYPES, "ssd_scan": LM_TYPES}.get(
+                 kernel, [torch.float32])
+    mod = {"spm_matmul": sm, "flash_attention": fa}.get(kernel)
+    tc = sum(mod.uses_tensor_cores(dt) for dt in types) if mod else 0
+    return {"tensor_cores": tc, "cuda_cores": len(types) - tc}
 
 
 def check_compute_case(rng, kernel: str, shape: dict, device) -> float:

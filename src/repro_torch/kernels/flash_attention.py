@@ -12,12 +12,17 @@ key gives 0 (the Pallas kernel's rule; the quadratic oracle
 ``repro_torch.models.layers.attention_ref`` gives such a row the mean
 of v instead).
 
-On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu`` once;
-on a CPU tensor it runs :func:`flash_attention_plain`. hd above
-:data:`MAX_HD` raises ``ValueError``: the kernel's shared memory and
-register blocks are sized for the configs' head widths (64, 96, 128).
-The reference's TPU blocks (``bq``, ``bk``) and ``interpret`` have no
-counterpart: the CUDA kernel's tiles are fixed.
+On a CUDA tensor the wrapper launches one of the two kernels of
+``csrc/flash_attention.cu`` once, picked by the dtype: bf16 runs the
+tensor-core kernel (mma.sync, P split into two bf16 terms so that P v
+keeps float32 accuracy; :data:`tc_launch_count`), float32 the CUDA-core
+kernel (float32 on the tensor cores would be TF32). This is a dispatch
+on the type, not a fallback: a launch that fails raises. On a CPU
+tensor it runs :func:`flash_attention_plain`. hd above :data:`MAX_HD`
+raises ``ValueError``: the kernels' shared memory and register blocks
+are sized for the configs' head widths (64, 96, 128). The reference's
+TPU blocks (``bq``, ``bk``) and ``interpret`` have no counterpart: the
+CUDA kernels' tiles are fixed.
 """
 from __future__ import annotations
 
@@ -34,8 +39,16 @@ MAX_HD = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PLAIN_ROWS = 256           # query rows per step of the plain version
 
-#: kernel launches so far (the CUDA path only)
+#: kernel launches so far (the CUDA path only), both kernels
 launch_count = 0
+#: of those, launches of the tensor-core kernel (bf16)
+tc_launch_count = 0
+
+
+def uses_tensor_cores(dtype: torch.dtype) -> bool:
+    """Whether ``dtype`` operands run the tensor-core kernel on the card
+    (bf16) or the CUDA-core one (float32)."""
+    return dtype == torch.bfloat16
 
 
 def scale_of(hd: int) -> float:
@@ -70,9 +83,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
-    """Attention (see the module docstring). CUDA tensors launch the
+    """Attention (see the module docstring). CUDA tensors launch one
     kernel once; CPU tensors run :func:`flash_attention_plain`."""
-    global launch_count
+    global launch_count, tc_launch_count
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -87,15 +100,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     if Skv == 0:
         return o.zero_()
-    rc = _library().flash_attention_launch(
-        DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), B, H, KV, Sq, Skv, hd, int(bool(causal)), int(window),
-        int(q_offset), scale_of(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+            KV, Sq, Skv, hd, int(bool(causal)), int(window), int(q_offset),
+            scale_of(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    tc = uses_tensor_cores(q.dtype)
+    lib = _library()
+    rc = lib.flash_attention_tc_launch(*args) if tc else \
+        lib.flash_attention_launch(DTYPES[q.dtype], *args)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     launch_count += 1
+    tc_launch_count += tc
     return o
 
 
@@ -107,6 +123,9 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ci, vp, vp, vp, vp, i64, i64, i64, i64, i64, i64, ci,
                        i64, i64, ctypes.c_float, vp]
         fn.restype = ci
+        tc = lib.flash_attention_tc_launch
+        tc.argtypes = fn.argtypes[1:]
+        tc.restype = ci
     return lib
 
 

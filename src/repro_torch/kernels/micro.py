@@ -464,19 +464,40 @@ def _reps(fn, budget_ms: float = 100.0) -> int:
                                                1e-3))))
 
 
+def tensor_core_call(w: Workload) -> bool:
+    """Whether the workload's call runs a tensor-core kernel on the card
+    (bf16 and int8 products, bf16 attention)."""
+    mod = MODULES[w.kernel]
+    return hasattr(mod, "uses_tensor_cores") and \
+        mod.uses_tensor_cores(DTYPES[w.shape["dtype"]])
+
+
+COUNTERS = ("launch_count", "tc_launch_count")
+
+
 def time_workload(w: Workload, x: dict) -> dict:
     """Kernel, plain and library times of one workload, beside its
-    bound. The kernel's launch counter is restored afterwards: timing
-    launches are not the main path's."""
+    bound; ``path`` names the kernel that ran. A tensor-core product
+    also times its operand glue (``tc_operands``: padding, and int8's
+    transposed B) as ``glue_ms`` (device; None where it launches
+    nothing) and ``glue_call_ms``: the kernel's ``ms`` leaves it out,
+    its ``call_ms`` holds it. The kernel's launch counters are restored
+    afterwards: timing launches are not the main path's."""
     mod = MODULES[w.kernel]
-    before = mod.launch_count
+    before = {c: getattr(mod, c) for c in COUNTERS if hasattr(mod, c)}
     kern = lambda: run_kernel(w, x)                         # noqa: E731
     plain = lambda: run_plain(w, x)                         # noqa: E731
     lib = library_call(w, x)
     t = times(timed(kern, _reps(kern), f"{w.kernel}_kernel"),
               timed(plain, _reps(plain)),
               None if lib is None else timed(lib, _reps(lib)))
-    mod.launch_count = before
+    for c, n in before.items():
+        setattr(mod, c, n)
+    t["path"] = "tensor cores" if tensor_core_call(w) else "CUDA cores"
+    if w.kernel == "spm_matmul" and tensor_core_call(w):
+        glue = lambda: sm.tc_operands(x["a"], x["b"])       # noqa: E731
+        g = timed(glue, _reps(glue))
+        t.update(glue_ms=g["device_ms"], glue_call_ms=g["call_ms"])
     return dict(t, **bound(*cost(w)))
 
 

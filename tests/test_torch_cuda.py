@@ -109,36 +109,51 @@ def test_backend_on_the_card_equals_cpu(card):
             np.testing.assert_array_equal(g.outputs[name], arr)
 
 
-VARIANTS = {"spm_matmul": len(checks.MATMUL_TYPES),
-            "spm_conv2d": len(checks.CONV_TYPES), "spm_fft": 1, "het_mimd": 1,
-            "flash_attention": len(checks.LM_TYPES),
-            "ssd_scan": len(checks.LM_TYPES)}
-
-
 @pytest.mark.parametrize("case", checks.compute_kernel_cases(),
                          ids=lambda c: f"{c[0]}-" + "-".join(
                              f"{k}{v}" for k, v in c[1].items()))
 def test_compute_kernel_equals_plain_at_odd_shapes(card, case):
+    """Each variant one launch; bf16 and int8 products and bf16
+    attention on the tensor-core kernels, float32 on the CUDA-core ones
+    (the shapes that need padding too)."""
     kernel, shape = case
     mod = micro.MODULES[kernel]
     before = mod.launch_count
+    tc_before = getattr(mod, "tc_launch_count", 0)
     checks.check_compute_case(np.random.default_rng(6), kernel, shape, card)
     torch.cuda.synchronize()
-    assert mod.launch_count == before + VARIANTS[kernel]
+    paths = checks.case_paths(kernel)
+    assert mod.launch_count == before + sum(paths.values())
+    assert getattr(mod, "tc_launch_count", 0) == \
+        tc_before + paths["tensor_cores"]
 
 
-@pytest.mark.parametrize("name", ["matmul_f32_2048", "conv_int32_2048_f11",
+def test_int8_product_wraps_on_the_card(card):
+    """2^17 + 4096 terms of (-128)(-128) wrap in the tensor cores' s32
+    accumulator (no .satfinite), as the plain version's int32 does."""
+    from repro_torch.kernels import spm_matmul as sm
+    before = sm.tc_launch_count
+    assert checks.check_int8_wrap(card) == -2080374784
+    assert sm.tc_launch_count == before + 1
+
+
+@pytest.mark.parametrize("name", ["matmul_f32_2048", "matmul_int8_4096",
+                                  "conv_int32_2048_f11",
                                   "fft_4096x1024", "composite_1024",
                                   "attn_hymba1.5b_swa_8192",
+                                  "attn_mixtral_prefill_cont",
                                   "ssd_mamba2-1.3b_4096"])
 def test_compute_kernel_equals_plain_at_card_scale(card, name):
     w = next(w for w in micro.CARD if w.name == name)
     x = micro.make_inputs(w, np.random.default_rng(7), card)
     mod = micro.MODULES[w.kernel]
     before = mod.launch_count
+    tc_before = getattr(mod, "tc_launch_count", 0)
     out = micro.run_kernel(w, x)
     torch.cuda.synchronize()
     assert mod.launch_count == before + 1        # the composite too: ONE
+    assert getattr(mod, "tc_launch_count", 0) == \
+        tc_before + micro.tensor_core_call(w)
     micro.compare_plain(w, x, out)
 
 

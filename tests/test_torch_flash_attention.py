@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import checks
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -133,3 +134,94 @@ def test_rejects_what_the_kernel_does_not_take():
         fa.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, q, q, window=-1)
+
+
+# ---------------------------------------------------------------------------
+# the numerics of the tensor-core kernel (bf16), held on the CPU
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+CARD_CASES = [s for k, s in checks.compute_kernel_cases()
+              if k == "flash_attention"]
+
+
+def _shape_id(shape):
+    return "-".join(f"{k}{v}" for k, v in shape.items())
+
+
+def tensor_core_design(q, k, v, causal, window, q_offset, split=True, bk=64):
+    """``csrc/flash_attention.cu``'s bf16 kernel, step for step in float32
+    on the CPU: float32 scores, an online softmax over 64-key tiles (exp2
+    of the log2e-scaled difference, masked scores -inf, m from -1e30),
+    and P v from P split into bf16 P_hi + P_lo, each times v (exact in
+    bf16) in float32; ``split=False`` rounds P to bf16 once instead."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // KV, 1)
+    vf = v.float().repeat_interleave(H // KV, 1)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, hd))
+    q_pos = q_offset + torch.arange(Sq)
+    for k0 in range(0, Skv, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = (q.float() @ kt.transpose(-1, -2)) * fa.scale_of(hd)
+        vis = fa.visible(q_pos, torch.arange(k0, min(k0 + bk, Skv)), causal,
+                         window)
+        s = torch.where(vis, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * LOG2E)
+        p = torch.exp2((s - m_new) * LOG2E)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).to(q.dtype)
+
+
+def _card_case(shape, seed):
+    B, H, KV, Sq, Skv, hd = (shape[c] for c in ("B", "H", "KV", "Sq", "Skv",
+                                                 "hd"))
+    masks = dict(causal=shape.get("causal", True),
+                 window=shape.get("window", 0),
+                 q_offset=shape.get("q_offset", 0))
+    q, k, v = _qkv(np.random.default_rng(seed), B, H, KV, Sq, Skv, hd,
+                   jnp.bfloat16)
+    want = array_from_reference(jops.attention_op(q, k, v, interpret=True,
+                                                  **masks))
+    tq, tk, tv = (array_from_reference(a) for a in (q, k, v))
+    rel, terms = checks.attention_tolerance(tq, tk, tv, **masks)
+    return tq, tk, tv, masks, want, rel, terms
+
+
+@pytest.mark.parametrize("shape", CARD_CASES, ids=_shape_id)
+def test_split_p_design_stays_inside_the_card_tolerance(shape):
+    """The bf16 kernel's numerics against the Pallas kernel (interpret
+    mode), within the card check's bound (``attention_tolerance``,
+    capped at 2e-3, plus one bf16 step) at the odd shapes the card check
+    runs."""
+    tq, tk, tv, masks, want, rel, terms = _card_case(shape, 11)
+    got = tensor_core_design(tq, tk, tv, **masks)
+    checks._capped("split-P design", got, want, rel, terms,
+                   checks.ATTENTION_TOL)
+
+
+@pytest.mark.parametrize("shape", CARD_CASES[:3], ids=_shape_id)
+def test_one_bf16_p_fails_the_card_tolerance(shape):
+    """The control: rounding P once to bf16 (an error up to 2^-9 of
+    sum p |v|) leaves the same bound, which is why the kernel splits P."""
+    tq, tk, tv, masks, want, rel, terms = _card_case(shape, 11)
+    got = tensor_core_design(tq, tk, tv, split=False, **masks)
+    with pytest.raises(AssertionError, match="differs"):
+        checks._capped("one-P design", got, want, rel, terms,
+                       checks.ATTENTION_TOL)
+
+
+def test_bf16_takes_the_tensor_cores_and_float32_the_cuda_cores():
+    assert fa.uses_tensor_cores(torch.bfloat16)
+    assert not fa.uses_tensor_cores(torch.float32)
+    assert checks.case_paths("flash_attention") == {"tensor_cores": 1,
+                                                    "cuda_cores": 1}

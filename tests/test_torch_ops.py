@@ -191,10 +191,12 @@ def test_chip_smoke_compute_phase_rehearsed_on_the_cpu(capsys):
         W("fft", "spm_fft", dict(B=5, n=256), ""),
         W("composite", "het_mimd", dict(H=32, W=32, F=3, nb=4, n=256, m=64,
                                         k=64, p=64), "")]
-    inputs, launches, err = smoke.run_compute_slice(
+    inputs, launches, err, paths = smoke.run_compute_slice(
         "cpu", np.random.default_rng(0), tiny)
     assert set(inputs) == {w.name for w in tiny}
     assert launches == dict.fromkeys(micro.MODULES, 0)
+    assert paths == {k: {"tensor_cores": 0, "cuda_cores": 0}
+                     for k in smoke.TC_KERNELS}
     assert err == dict.fromkeys(micro.MODULES, 0.0)
     assert capsys.readouterr().out.count("[slice2]") == len(tiny)
 
@@ -218,10 +220,12 @@ def test_chip_smoke_lm_phase_rehearsed_on_the_cpu(capsys):
                                               dtype="float32"), ""),
         W("ssd", "ssd_scan", dict(Bz=2, S=96, H=4, P=8, N=6, G=2, chunk=32,
                                   dtype="float32"), "")]
-    inputs, launches, err = smoke.run_compute_slice(
+    inputs, launches, err, paths = smoke.run_compute_slice(
         "cpu", np.random.default_rng(0), tiny, tag="slice3")
     assert set(inputs) == {w.name for w in tiny}
     assert launches == dict.fromkeys(micro.MODULES, 0)
+    assert paths == {k: {"tensor_cores": 0, "cuda_cores": 0}
+                     for k in smoke.TC_KERNELS}
     assert err == dict.fromkeys(micro.MODULES, 0.0)
     assert capsys.readouterr().out.count("[slice3]") == len(tiny)
     assert {k for k, _, _ in smoke.KERNELS} == set(micro.MODULES) | {

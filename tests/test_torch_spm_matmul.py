@@ -99,3 +99,56 @@ def test_rejects_what_the_kernel_does_not_take():
         sm.spm_matmul(a8, torch.zeros((4, 2), dtype=torch.int8))
     with pytest.raises(ValueError):
         sm.spm_matmul(a8, torch.zeros((3, 2), dtype=torch.int16))
+
+
+TC_SHAPES = [(256, 512, 384), (1, 1, 1), (33, 65, 17), (129, 257, 63),
+             (70, 5, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", TC_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_operands_keep_the_product(shape, dtype):
+    """``tc_operands`` (the tensor-core kernel's glue) pads K, and a bf16
+    b's N, with zeros to whole 16-byte rows, and hands an int8 b over as
+    b^T [N, Kp]: the product of what it returns is exactly ``a @ b`` —
+    int8 through the plain version, bf16 in float64 (exact for these
+    sums) and through the plain version. Aligned operands pass as they
+    are, without a copy."""
+    M, K, N = shape
+    a, b = checks.matmul_operands(np.random.default_rng(sum(shape)), M, K,
+                                  N, dtype, "cpu")
+    ak, bk = sm.tc_operands(a, b)
+    Kp = ak.shape[1]
+    assert ak.is_contiguous() and bk.is_contiguous()
+    assert ak.shape[0] == M and 0 <= Kp - K < 16 // a.element_size()
+    assert Kp * a.element_size() % 16 == 0
+    assert not ak[:, K:].any()
+    want = sm.spm_matmul_plain(a, b)
+    if dtype == torch.int8:
+        assert tuple(bk.shape) == (N, Kp) and not bk[:, K:].any()
+        assert torch.equal(sm.spm_matmul_plain(ak, bk.t()), want)
+        return
+    Np = bk.shape[1]
+    assert bk.shape[0] == Kp and 0 <= Np - N < 8 and Np % 8 == 0
+    assert not bk[K:].any() and not bk[:, N:].any()
+    assert torch.equal((ak.double() @ bk.double())[:, :N],
+                       a.double() @ b.double())
+    assert torch.equal(sm.spm_matmul_plain(ak, bk)[:, :N], want)
+    if (K, N) == (Kp, Np):
+        assert ak.data_ptr() == a.data_ptr() and bk.data_ptr() == b.data_ptr()
+
+
+def test_int8_wrap_check():
+    """The card check of the tensor cores' wrapping s32 sum holds for
+    the plain version: 65 x (2^17 + 4096) x 17 of -128 gives
+    (K 16384 mod 2^32) as int32 everywhere."""
+    assert checks.check_int8_wrap("cpu") == -2080374784
+
+
+def test_bf16_and_int8_take_the_tensor_cores_and_float32_the_cuda_cores():
+    assert sm.uses_tensor_cores(torch.bfloat16)
+    assert sm.uses_tensor_cores(torch.int8)
+    assert not sm.uses_tensor_cores(torch.float32)
+    assert checks.case_paths("spm_matmul") == {"tensor_cores": 3,
+                                               "cuda_cores": 1}
