@@ -15,7 +15,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    integers bit for bit, floats within error bounds, with the per-path
    launch counters showing the bf16 / int8 products and bf16 attention
    on the tensor-core kernels and float32 on the CUDA-core ones; an
-   int8 product whose int32 sums wrap (no saturation); then TF32
+   int8 product whose int32 sums wrap (no saturation); ``spm_fft`` bit
+   for bit against its plain version at every n = 1 .. 16384; then TF32
    products (cuBLAS with TF32 allowed), which the float32 matmul check
    must reject;
 3. slice 1 — the KVI main path at the paper's sizes through
@@ -27,7 +28,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
 4. slice 2 — the paper's compute kernels at card scale through the
    intrinsics layer ``repro_torch.kernels.ops`` (matmul bf16 / int8 /
    f32, conv2d int32 F = 3 and 11 and f32, FFT 16384 x 256 and
-   4096 x 1024, the het-MIMD composite at the paper's size and at 1024),
+   4096 x 1024, the het-MIMD composite at the paper's size and at 1024,
+   and the 1024 composite's three parts alone),
    each output held against its plain version on the same tensors and
    against an independent numpy formula (int64 sums, float64 products
    and FFTs); the launch counters must show one launch per call, on the
@@ -690,8 +692,10 @@ def main(argv=None) -> int:
         raise AssertionError(f"launches by path at odd shapes {odd_paths}, "
                              f"want {want}")
     wrapped = checks.check_int8_wrap(device)
+    exact = checks.check_fft_exact(rng, device)
     print(f"[check] kernels equal their plain versions on the card: "
           f"max abs err {err}; compute kernels at odd shapes {odd}; "
+          f"spm_fft bit for bit at {exact} shapes, n = 1 .. 16384; "
           f"launches by path there {json.dumps(odd_paths)}; int8 "
           f"{checks.WRAP_M}x{checks.WRAP_K}x{checks.WRAP_N} of -128 wraps "
           f"to {wrapped} (no saturation)")

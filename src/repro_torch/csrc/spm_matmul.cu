@@ -5,8 +5,11 @@
 //   nearest even); int8 accumulates in a wrapping 32-bit integer
 //   (wgmma .s32.s8.s8 without .satfinite) and stores int32;
 // - float32 runs on the CUDA cores (spm_matmul_kernel, the tile routine
-//   of spm_tiles.cuh), one FMA per term: float32 on the tensor cores
-//   would be TF32, which the checks refuse.
+//   of spm_tiles.cuh, which the het-MIMD composite's matmul runs too:
+//   here 128 x 64 tiles, 8 x 8 outputs a thread fed by float4 reads, the
+//   block's two halves splitting K, K slabs of 16 through a three-stage
+//   cp.async ring), one FMA per term: float32 on the tensor cores would
+//   be TF32, which the checks refuse.
 //
 // Replaces the TPU kernel repro/kernels/spm_matmul.py::_matmul_kernel
 // (a (M/bm, N/bn, K/bk) grid that carries a VMEM accumulator across the
@@ -54,10 +57,13 @@ enum Dtype { F32 = 0, BF16 = 1, I8 = 2, I32 = 3 };
 
 // ---- float32 on the CUDA cores ---------------------------------------------
 
-__global__ void __launch_bounds__(spm::kThreads)
+// 128 x 64 tiles (512 at 2048^2), K slabs of 16
+constexpr int kF32Rows = 128, kF32Slab = 16;
+
+__global__ void __launch_bounds__(spm::kThreads, 2)
 spm_matmul_kernel(const float* a, const float* b, float* c, int64_t M, int64_t N, int64_t K) {
   extern __shared__ __align__(16) unsigned char smem[];
-  spm::matmul_tile<float, float>(a, b, c, M, N, K, blockIdx.x, smem);
+  spm::matmul_tile<kF32Rows, kF32Slab>(a, b, c, M, N, K, blockIdx.x, smem);
 }
 
 // ---- bf16 and int8 on the tensor cores ---------------------------------------
@@ -345,9 +351,12 @@ extern "C" int spm_matmul_launch(int in_dtype, int out_dtype, const void* a, con
                                  void* c, int64_t M, int64_t N, int64_t K, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (in_dtype != F32 || out_dtype != F32) return (int)cudaErrorInvalidValue;
-  const int64_t tiles = spm::matmul_tiles(M, N);
+  const int64_t tiles = spm::matmul_tiles<kF32Rows>(M, N);
   if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  spm_matmul_kernel<<<(unsigned)tiles, spm::kThreads, spm::kMatmulSmemBytes,
+  constexpr size_t smem = spm::MmTile<kF32Rows, kF32Slab>::kSmemBytes;
+  const int rc = spm::allow_smem(spm_matmul_kernel, smem);
+  if (rc != 0) return rc;
+  spm_matmul_kernel<<<(unsigned)tiles, spm::kThreads, smem,
                       (cudaStream_t)stream>>>((const float*)a, (const float*)b, (float*)c, M, N,
                                               K);
   return (int)cudaGetLastError();

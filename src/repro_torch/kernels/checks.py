@@ -420,6 +420,43 @@ def check_fft(rng, B, n, device) -> float:
     return compare_fft(*sf.spm_fft(re, im), re, im)
 
 
+def fft_exact_cases(sms: int = sf.SMS) -> Sequence[Tuple[int, int]]:
+    """``(B, n)`` for every n = 2^0 .. 2^14: 3 rows (one a block), 1000
+    (a small batch's few rows a block) and, where a block holds more than
+    one row, one row past ``sms`` full blocks, so the last block is
+    partial (``sms``: the card's SM count, which sets the rows a block
+    holds at small B)."""
+    cases = []
+    for log2n in range(sf.MAX_N.bit_length()):
+        n = 1 << log2n
+        rows = sf.pass_plan(n).rows_per_block
+        for B in sorted({3, 1000} | ({rows * sms + 1} if rows > 1 else set())):
+            cases.append((B, n))
+    return cases
+
+
+def check_fft_exact(rng, device, log2ns=range(15)) -> int:
+    """``spm_fft`` equal to ``spm_fft_plain`` bit for bit at every
+    :func:`fft_exact_cases` shape with n = 2^log2n: the kernel rounds each
+    operation of each butterfly as the plain version does, on the same
+    twiddles, so only the data movement differs. Returns the number of
+    shapes checked."""
+    sms = sf.sm_count(device) if torch.device(device).type == "cuda" \
+        else sf.SMS
+    done = 0
+    for B, n in fft_exact_cases(sms):
+        if n.bit_length() - 1 not in log2ns:
+            continue
+        re = random_floats(rng, (B, n), torch.float32, device)
+        im = random_floats(rng, (B, n), torch.float32, device)
+        got_re, got_im = sf.spm_fft(re, im)
+        want_re, want_im = sf.spm_fft_plain(re, im)
+        _require_equal(f"spm_fft re ({B}, {n})", got_re, want_re)
+        _require_equal(f"spm_fft im ({B}, {n})", got_im, want_im)
+        done += 1
+    return done
+
+
 def het_mimd_operands(rng, H, W, F, nb, n, m, k, p, device):
     """A zero-padded image (as the reference's callers pad it), a
     filter, FFT planes and matmul operands, all standard normal."""
@@ -611,6 +648,13 @@ def compute_kernel_cases() -> Sequence[Tuple[str, dict]]:
         ("het_mimd", dict(H=32, W=32, F=3, nb=4, n=128, m=32, k=48, p=16)),
         ("het_mimd", dict(H=35, W=19, F=4, nb=5, n=8192, m=33, k=17,
                           p=70)),
+        # matmul edges off the 64 x 64 and 128 x 64 tiles; K of one, a
+        # few and many slabs (1023: a partial last slab); one FFT row
+        ("het_mimd", dict(H=40, W=33, F=3, nb=9, n=256, m=129, k=1, p=65)),
+        ("het_mimd", dict(H=17, W=64, F=5, nb=3, n=1024, m=129, k=5,
+                          p=65)),
+        ("het_mimd", dict(H=33, W=31, F=3, nb=1, n=2048, m=129, k=1023,
+                          p=65)),
         # no length a multiple of a 64 tile; G = 1, 2, 5; every mask;
         # rows that see no key (q_offset 80, window 8); hd 1 to 128
         ("flash_attention", dict(B=2, H=4, KV=2, Sq=100, Skv=100, hd=64)),

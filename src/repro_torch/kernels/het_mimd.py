@@ -14,8 +14,9 @@ kernels, on three "harts", in ONE kernel launch.
 
 Every operand is taken in float32, as the reference's branches cast
 them. On CUDA tensors the wrapper launches ``csrc/het_mimd.cu`` once:
-the block index range is the hart and selects the tile program. On CPU
-tensors it runs :func:`het_mimd_composite_plain`.
+the block index range is the hart (matmul tiles first, the longest
+blocks, then conv tiles, then FFT row groups) and selects the tile
+program. On CPU tensors it runs :func:`het_mimd_composite_plain`.
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ import torch
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.spm_conv2d import check_filter, correlate_plain
-from repro_torch.kernels.spm_fft import check_planes, spm_fft_plain, \
-    twiddles
+from repro_torch.kernels.spm_fft import check_planes, pass_plan, sm_count, \
+    spm_fft_plain, twiddles
 
 #: kernel launches so far (the CUDA path only)
 launch_count = 0
@@ -72,11 +73,13 @@ def het_mimd_composite(img: torch.Tensor, filt: torch.Tensor,
     mm = torch.empty((M, N), dtype=torch.float32, device=img.device)
     if conv.numel() + ore.numel() + mm.numel() == 0:
         return conv, ore, oim, mm
+    plan = pass_plan(n, nb, sm_count(img.device))
     rc = _library().het_mimd_launch(
         img.data_ptr(), filt.data_ptr(), F, conv.data_ptr(), H, W,
         fft_re.data_ptr(), fft_im.data_ptr(), tw.data_ptr(), ore.data_ptr(),
-        oim.data_ptr(), nb, log2n, A.data_ptr(), B.data_ptr(), mm.data_ptr(),
-        M, K, N, torch.cuda.current_stream(img.device).cuda_stream)
+        oim.data_ptr(), nb, log2n, plan.packed, plan.rows_per_block,
+        A.data_ptr(), B.data_ptr(), mm.data_ptr(), M, K, N,
+        torch.cuda.current_stream(img.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"het_mimd kernel launch failed: CUDA error {rc}")
     launch_count += 1
@@ -89,7 +92,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         i64, vp, ci = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, ci, vp, i64, i64, vp, vp, vp, vp, vp, i64, ci,
-                       vp, vp, vp, i64, i64, i64, vp]
+                       ctypes.c_uint, ci, vp, vp, vp, i64, i64, i64, vp]
         fn.restype = ci
     return lib
 

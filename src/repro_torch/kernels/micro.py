@@ -119,6 +119,17 @@ CARD = (
              dict(H=1024, W=1024, F=3, nb=1024, n=256, m=1024, k=1024,
                   p=1024),
              "the same composite at card scale"),
+    # composite_1024's parts, each alone: the composite against their sum
+    # and their maximum says whether its one launch overlaps them
+    Workload("part_matmul_f32_1024", "spm_matmul",
+             dict(M=1024, K=1024, N=1024, dtype="float32"),
+             "composite_1024's matmul hart, alone"),
+    Workload("part_fft_1024x256", "spm_fft", dict(B=1024, n=256),
+             "composite_1024's FFT hart, alone"),
+    Workload("part_conv_f32_1024_f3", "spm_conv2d",
+             dict(H=1024, W=1024, F=3, dtype="float32"),
+             "composite_1024's conv hart, alone (same-size, padded by "
+             "index)"),
     Workload("attn_llama3.2-1b_causal_4096", "flash_attention",
              dict(B=2, H=32, KV=8, Sq=4096, Skv=4096, hd=64,
                   dtype="bfloat16"),

@@ -9,19 +9,22 @@ stage of half-size ``h`` multiplying the difference by the twiddle
 ``cos/sin(float32(-2 pi) * k / (2 h))``, then the bit-reversal gather
 ``out[:, j] = x[:, bitrev(j)]``. :func:`twiddles` builds that table
 once per n and device; the kernel and :func:`spm_fft_plain` read the
-same table, so on the card the two can be held tightly.
+same table and round every operation alike, so on the card the two
+agree bit for bit.
 
-On a CUDA tensor the wrapper launches ``csrc/spm_fft.cu`` once; on a
-CPU tensor it runs :func:`spm_fft_plain`. n above :data:`MAX_N` raises
-``ValueError``: one row then needs more than the 128 KB of shared
-memory the kernel is built for. The reference's ``batch_block`` and
-``interpret`` have no counterpart.
+On a CUDA tensor the wrapper launches ``csrc/spm_fft.cu`` once, with
+the pass plan of :func:`pass_plan`; on a CPU tensor it runs
+:func:`spm_fft_plain`. n above :data:`MAX_N` raises ``ValueError``: one
+row then needs more than the 128 KB of shared memory the kernel is built
+for. The reference's ``batch_block`` and ``interpret`` have no
+counterpart.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +32,11 @@ import torch
 from repro_torch.kernels.build import load_library
 
 MAX_N = 16384
+#: the kernel's block size, its most radix-2 stages in one pass, and the
+#: H100's SM count
+THREADS = 256
+MAX_RADIX = 4
+SMS = 132
 
 #: kernel launches so far (the CUDA path only)
 launch_count = 0
@@ -56,6 +64,54 @@ def check_planes(re: torch.Tensor, im: torch.Tensor) -> int:
         raise ValueError(f"spm_fft: n = {n} exceeds {MAX_N} (one row would "
                          f"not fit a block's shared memory)")
     return n.bit_length() - 1
+
+
+class PassPlan(NamedTuple):
+    """How the kernel runs n points: ``radices[p]`` radix-2 stages in
+    pass p, from half-size n / 2 down; ``threads_per_row`` threads hold a
+    row in the first pass (16 points each at radix 4); a block holds a
+    tile of ``rows_per_block`` rows in ``smem_bytes`` of shared memory
+    (two planes of whole 32-word lines, the swizzle's unit)."""
+
+    radices: Tuple[int, ...]
+    threads_per_row: int
+    rows_per_block: int
+    smem_bytes: int
+
+    @property
+    def packed(self) -> int:
+        """The launcher's form: the number of passes in bits 0-3, the
+        stages of pass p in bits 4 + 4 p."""
+        return len(self.radices) | sum(r << (4 + 4 * p)
+                                       for p, r in enumerate(self.radices))
+
+
+@functools.lru_cache(maxsize=None)
+def pass_plan(n: int, batch: Optional[int] = None, sms: int = SMS
+              ) -> PassPlan:
+    """The kernel's plan for rows of n points (a power of two up to
+    :data:`MAX_N`): ceil(log2(n) / 4) passes of near-equal radix (n <= 16:
+    one pass; n = 1: one pass of no stage), as many rows a tile as a
+    block's threads hold in the first pass, and with ``batch`` rows no
+    more than ``batch // sms`` of them, so a small batch still spreads
+    over the card's ``sms`` SMs."""
+    if n < 1 or n & (n - 1) or n > MAX_N:
+        raise ValueError(f"spm_fft: no plan for n = {n}")
+    log2n = n.bit_length() - 1
+    passes = max(1, -(-log2n // MAX_RADIX))
+    radix, extra = divmod(log2n, passes)
+    radices = (radix + 1,) * extra + (radix,) * (passes - extra)
+    threads = n >> radices[0]
+    rows = max(1, THREADS // threads)
+    if batch is not None:
+        rows = min(rows, max(1, batch // sms))
+    return PassPlan(radices, threads, rows, 2 * 4 * (-(-rows * n // 32) * 32))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def twiddles(n: int, device) -> torch.Tensor:
@@ -92,13 +148,15 @@ def spm_fft(re: torch.Tensor, im: torch.Tensor
         raise ValueError(f"spm_fft: unsupported device {re.device}")
     re = re.to(torch.float32).contiguous()
     im = im.to(torch.float32).contiguous()
-    tw = twiddles(re.shape[1], re.device)
+    B, n = re.shape
+    tw = twiddles(n, re.device)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if re.numel() == 0:
         return ore, oim
+    plan = pass_plan(n, B, sm_count(re.device))
     rc = _library().spm_fft_launch(
         re.data_ptr(), im.data_ptr(), tw.data_ptr(), ore.data_ptr(),
-        oim.data_ptr(), re.shape[0], log2n,
+        oim.data_ptr(), B, log2n, plan.packed, plan.rows_per_block,
         torch.cuda.current_stream(re.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"spm_fft kernel launch failed: CUDA error {rc}")
@@ -111,7 +169,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.spm_fft_launch
     if fn.argtypes is None:
         i64, vp, ci = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i64, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, i64, ci, ctypes.c_uint, ci, vp]
         fn.restype = ci
     return lib
 

@@ -128,6 +128,18 @@ def test_compute_kernel_equals_plain_at_odd_shapes(card, case):
         tc_before + paths["tensor_cores"]
 
 
+def test_fft_equals_plain_bit_for_bit(card):
+    """The register-pass FFT rounds every butterfly as the plain version
+    does: equal bit for bit at every n = 2^0 .. 2^14, at B = 3, 1000 and
+    a B whose last block is partial."""
+    from repro_torch.kernels import spm_fft as sf
+    before = sf.launch_count
+    done = checks.check_fft_exact(np.random.default_rng(10), card)
+    torch.cuda.synchronize()
+    assert done == len(checks.fft_exact_cases(sf.sm_count(card))) \
+        == sf.launch_count - before
+
+
 def test_int8_product_wraps_on_the_card(card):
     """2^17 + 4096 terms of (-128)(-128) wrap in the tensor cores' s32
     accumulator (no .satfinite), as the plain version's int32 does."""
@@ -176,10 +188,15 @@ def test_compute_kernel_launch_errors_raise(card):
     from repro_torch.kernels import spm_fft as sf
     lib = sf._library()
     x = torch.zeros((1, 4), device=card)
-    rc = lib.spm_fft_launch(x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                            x.data_ptr(), x.data_ptr(), 1, 15,
-                            torch.cuda.current_stream().cuda_stream)
-    assert rc != 0
+    stream = torch.cuda.current_stream().cuda_stream
+    # n = 2^15; a plan that does not cover log2(n) = 2; rows past 227 KB
+    for log2n, plan, rows in ((15, sf.pass_plan(16384).packed, 1),
+                              (2, sf.pass_plan(8).packed, 1),
+                              (2, sf.pass_plan(4).packed, 1 << 14)):
+        rc = lib.spm_fft_launch(x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                x.data_ptr(), x.data_ptr(), 1, log2n, plan,
+                                rows, stream)
+        assert rc != 0
     with pytest.raises(ValueError, match="exceeds"):
         sf.spm_fft(torch.zeros((1, 32768), device=card),
                    torch.zeros((1, 32768), device=card))
