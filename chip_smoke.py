@@ -14,7 +14,10 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    (no dimension a multiple of a tile; one matmul of whole tiles),
    integers bit for bit, floats within error bounds, with the per-path
    launch counters showing the bf16 / int8 products and bf16 attention
-   on the tensor-core kernels and float32 on the CUDA-core ones; an
+   on the tensor-core kernels and float32 on the CUDA-core ones; each
+   of the SSD scan's three kernels alone against its plain version (odd
+   shapes, bf16 x, and the mamba2 row), and the scan at odd shapes
+   against a float64 numpy recurrence; an
    int8 product whose int32 sums wrap (no saturation); ``spm_fft`` bit
    for bit against its plain version at every n = 1 .. 16384; then TF32
    products (cuBLAS with TF32 allowed), which the float32 matmul check
@@ -34,12 +37,13 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    against an independent numpy formula (int64 sums, float64 products
    and FFTs); the launch counters must show one launch per call, on the
    tensor-core kernel for every bf16 and int8 product;
-   slice 3 — ``ops.attention_op`` and ``ops.ssd_scan_op`` at the widths
-   of the repo's configs (llama3.2-1b causal 4096, hymba-1.5b window
-   2048 over 8192, a mixtral prefill continuation, mamba2-1.3b's SSD at
-   4096), driven likewise with the counters set to 0 just before, each
-   output against its plain version and a float64 numpy formula on
-   sampled heads and rows;
+   slice 3 — ``ops.attention_op`` and ``ops.ssd_scan_op`` (three
+   launches a call: chunk states, the scan over chunks, the chunk scan)
+   at the widths of the repo's configs (llama3.2-1b causal 4096,
+   hymba-1.5b window 2048 over 8192, a mixtral prefill continuation,
+   mamba2-1.3b's SSD at 4096), driven likewise with the counters set to
+   0 just before, each output against its plain version and a float64
+   numpy formula on sampled heads and rows;
 5. time    — each kernel at main-path shapes with ``torch.profiler`` and
    CUDA events, beside its plain version, its bound and (where one
    exists) a PyTorch library call computing the same function; for the
@@ -49,7 +53,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers
 (``spm_matmul`` and ``flash_attention`` with their main-path launches by
-path) and ``{"ok": true, "device": {...}}``.
+path; the SSD scan as its three kernels, each with the whole call under
+``scan``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -491,33 +496,37 @@ def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
     ``device``, with the compute kernels' launch counters set to 0 just
     before and read just after; then each output against its plain
     version and its numpy formula. On the card each call must be one
-    launch of its kernel, and each bf16 / int8 product and bf16
-    attention call one of the tensor-core kernel (float32 the CUDA-core
-    one). Returns ``(inputs by name, launches, largest difference from
-    the plain version by kernel, launches by path)``; ``tag`` heads the
-    log lines (``slice2``: the paper's kernels, ``slice3``: attention
-    and the SSD scan)."""
+    launch of its kernel (the SSD scan's three, one of each of its
+    kernels), and each bf16 / int8 product and bf16 attention call one
+    of the tensor-core kernel (float32 the CUDA-core one). Returns
+    ``(inputs by name, launches, largest difference from the plain
+    version by kernel, launches by path)``; ``tag`` heads the log lines
+    (``slice2``: the paper's kernels, ``slice3``: attention and the SSD
+    scan)."""
     import torch
     from repro_torch.kernels import micro
+    from repro_torch.kernels import ssd_scan as ss
     inputs = {w.name: micro.make_inputs(w, rng, device) for w in workloads}
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    for mod in micro.MODULES.values():
-        mod.launch_count = 0
-    for k in TC_KERNELS:
-        micro.MODULES[k].tc_launch_count = 0
+    micro.reset_counts()
     outs = {w.name: micro.run_kernel(w, inputs[w.name]) for w in workloads}
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     launches = {k: mod.launch_count for k, mod in micro.MODULES.items()}
+    ssd_launches = dict(ss.part_launches)
     paths = path_counts()
     calls = {k: sum(w.kernel == k for w in workloads) for k in micro.MODULES}
     tc_calls = {k: sum(w.kernel == k and micro.tensor_core_call(w)
                        for w in workloads) for k in TC_KERNELS}
     if torch.device(device).type == "cuda":
-        if launches != calls:
-            raise AssertionError(f"launches {launches} are not one per call "
-                                 f"{calls}")
+        want = {k: n * micro.launches_per_call(k) for k, n in calls.items()}
+        if launches != want:
+            raise AssertionError(f"launches {launches} are not the calls' "
+                                 f"{want}")
+        if ssd_launches != dict.fromkeys(ss.PARTS, calls["ssd_scan"]):
+            raise AssertionError(f"SSD kernel launches {ssd_launches} are "
+                                 f"not one of each per call")
         for k, n in tc_calls.items():
             if paths[k]["tensor_cores"] != n:
                 raise AssertionError(f"{k}: {paths[k]} launches by path, "
@@ -535,9 +544,78 @@ def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
     return inputs, launches, err, paths
 
 
+def check_ssd_kernels(rng, device, row_shape):
+    """Phase 2 for the SSD scan's three kernels: each against its plain
+    version alone (``checks.check_ssd_parts``) at the odd shapes of
+    ``checks.ssd_part_cases`` (float32 and bf16 x) and at the main
+    path's row ``row_shape`` (float32), one launch of each per check;
+    then the whole scan at the odd shapes against the float64 numpy
+    recurrence. Returns the largest difference from the plain version
+    by kernel."""
+    import torch
+    from repro_torch.kernels import checks, ops
+    from repro_torch.kernels import ssd_scan as ss
+    err = dict.fromkeys(ss.PARTS, 0.0)
+    runs = [(shape, dt) for shape in checks.ssd_part_cases()
+            for dt in checks.LM_TYPES] + [(row_shape, torch.float32)]
+    before = dict(ss.part_launches)
+    for shape, dt in runs:
+        for k, e in checks.check_ssd_parts(rng, device=device, dtype=dt,
+                                           **shape).items():
+            err[k] = max(err[k], e)
+    torch.cuda.synchronize()
+    if ss.part_launches != {k: n + len(runs) for k, n in before.items()}:
+        raise AssertionError(f"SSD kernel launches {ss.part_launches}, "
+                             f"want {len(runs)} more of each than {before}")
+    for shape in checks.ssd_part_cases():
+        for dt in checks.LM_TYPES:
+            args = checks.ssd_operands(rng, shape["Bz"], shape["S"],
+                                       shape["H"], shape["P"], shape["N"], 1,
+                                       device, dt)
+            _formula_ssd(f"ssd_scan {json.dumps(shape)} {dt}",
+                         ops.ssd_scan_op(*args, chunk=shape["chunk"]), *args)
+    return err
+
+
 # ---------------------------------------------------------------------------
 # kernel timing
 # ---------------------------------------------------------------------------
+
+def time_ssd_parts(w, x):
+    """Each of the SSD scan's three kernels alone at the workload's
+    shapes, beside its plain version and its bound
+    (``micro.ssd_part_costs``). The scan over chunks is timed on one
+    workspace, updated in place call after call (its values grow, its
+    work does not). Launch counters are set back afterwards."""
+    from repro_torch.kernels import micro
+    from repro_torch.kernels import ssd_scan as ss
+    saved = micro.save_counts()
+    xx, da, dt, B, C = ss.kernel_inputs(x["x"], x["dt"], x["A"], x["B"],
+                                        x["C"])
+    da, dt, B, C = (t.float().contiguous() for t in (da, dt, B, C))
+    cs = ss.chunk_size(xx.shape[1], x["chunk"])
+    states, cum = ss.chunk_state(xx, da, dt, B, cs)
+    work = states.clone()
+    h_in, _ = ss.state_pass(states, cum, cs)
+    runs = {"ssd_chunk_state": (
+                lambda: ss.chunk_state(xx, da, dt, B, cs),
+                lambda: ss.chunk_state_plain(xx, da, dt, B, cs)),
+            "ssd_state_pass": (
+                lambda: ss.state_pass(work, cum, cs),
+                lambda: ss.state_pass_plain(work, cum, cs)),
+            "ssd_chunk_scan": (
+                lambda: ss.chunk_scan(xx, dt, B, C, cum, h_in, cs),
+                lambda: ss.chunk_scan_plain(xx, dt, B, C, cum, h_in, cs))}
+    costs = micro.ssd_part_costs(w.shape)
+    out = {}
+    for name, (kern, plain) in runs.items():
+        t = micro.times(micro.timed(kern, micro.reps_for(kern),
+                                    f"{name}_kernel"),
+                        micro.timed(plain, micro.reps_for(plain)))
+        out[name] = dict(t, **micro.bound(*costs[name]))
+    micro.restore_counts(saved)
+    return out
+
 
 def time_fused(rng, device):
     """fused_vops on the first region of conv2d 32x32 F = 3 (the
@@ -628,6 +706,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, checks, micro
     from repro_torch.kernels import fused_vops as fv
     from repro_torch.kernels import kdotp as kd
+    from repro_torch.kernels import ssd_scan as ss
 
     device = torch.device("cuda", torch.cuda.current_device())
     micro.card_settings()
@@ -693,8 +772,13 @@ def main(argv=None) -> int:
                              f"want {want}")
     wrapped = checks.check_int8_wrap(device)
     exact = checks.check_fft_exact(rng, device)
+    row = next(w for w in micro.CARD if w.name == SHOWN["ssd_scan"])
+    ssd_err = check_ssd_kernels(rng, device, {
+        k: row.shape[k] for k in ("Bz", "S", "H", "P", "N", "chunk")})
     print(f"[check] kernels equal their plain versions on the card: "
           f"max abs err {err}; compute kernels at odd shapes {odd}; "
+          f"the SSD scan's three kernels alone {ssd_err} (odd shapes and "
+          f"{row.name}), the scan at odd shapes within its numpy formula; "
           f"spm_fft bit for bit at {exact} shapes, n = 1 .. 16384; "
           f"launches by path there {json.dumps(odd_paths)}; int8 "
           f"{checks.WRAP_M}x{checks.WRAP_K}x{checks.WRAP_N} of -128 wraps "
@@ -733,6 +817,8 @@ def main(argv=None) -> int:
             device, rng, workloads, tag=tag,
             log=lambda m: print(f"{m}; card: {card}"))
         inputs.update(ins)
+        if "ssd_scan" in kernels:
+            ssd_launches = dict(ss.part_launches)   # no launch since the run
         for k in kernels:
             launches[k] = run_launches[k]
             err[k] = max(run_err[k], odd[k])
@@ -750,19 +836,34 @@ def main(argv=None) -> int:
         t["bound_ms"], t["bound_by"] = _bound(t)
     by_kernel = {k: {} for k in micro.MODULES}
     for w in micro.CARD:
-        t = micro.time_workload(w, inputs.pop(w.name))
+        x = inputs.pop(w.name)
+        t = micro.time_workload(w, x)
         by_kernel[w.kernel][w.name] = t
         print(f"[time] {w.name}: {json.dumps(t)}; card: {card}")
+        if w.name == SHOWN["ssd_scan"]:
+            ssd_times = time_ssd_parts(w, x)
+            print(f"[time] {w.name} by kernel: {json.dumps(ssd_times)}; "
+                  f"card: {card}")
+        del x
         torch.cuda.empty_cache()
     for k, ws in by_kernel.items():
         times[k] = dict(ws[SHOWN[k]], shape=SHOWN[k], workloads={
             name: {key: t[key] for key in (
                 "ms", "call_ms", "plain_ms", "library_ms", "library_kernel",
-                "bound_ms", "bound_by", "path", "glue_ms", "glue_call_ms")
-                   if key in t}
+                "bound_ms", "bound_by", "path", "glue_ms", "glue_call_ms",
+                "device_ms_by") if key in t}
             for name, t in ws.items()})
+    # the SSD scan stands as its three kernels, each with the whole call
+    # beside it
+    scan = dict(times.pop("ssd_scan"), max_abs_err=err["ssd_scan"],
+                launches=launches["ssd_scan"])
+    for part in ss.PARTS:
+        times[part] = dict(ssd_times[part], shape=SHOWN["ssd_scan"],
+                           scan=scan)
+        launches[part] = ssd_launches[part]
+        err[part] = ssd_err[part]
     kernels = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces in json_rows(ss.PARTS):
         t = times[name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
@@ -772,7 +873,7 @@ def main(argv=None) -> int:
         entry.update({k: t[k] for k in ("ms_source", "call_ms",
                                         "plain_call_ms", "library_call_ms",
                                         "shape")})
-        for extra in ("kvred", "workloads"):
+        for extra in ("kvred", "workloads", "scan"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in paths:
@@ -808,6 +909,15 @@ KERNELS = (
     ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:24"),
 )
+
+
+def json_rows(ssd_parts):
+    """``KERNELS`` as the JSON lists them: the SSD scan as its kernels
+    ``ssd_parts``, each with the scan's source and TPU kernel."""
+    return [(part, source, replaces) for name, source, replaces in KERNELS
+            for part in (ssd_parts if name == "ssd_scan" else (name,))]
+
+
 #: the kernels of phase 4's two driven runs
 SLICE2 = ("spm_matmul", "spm_conv2d", "spm_fft", "het_mimd")
 SLICE3 = ("flash_attention", "ssd_scan")

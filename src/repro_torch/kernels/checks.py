@@ -615,6 +615,70 @@ def check_ssd(rng, Bz, S, H, P, N, G, chunk, device,
                        chunk=chunk)
 
 
+def ssd_part_cases() -> Sequence[dict]:
+    """Shapes of the three SSD kernels' checks, each alone: a chunk of 48
+    (no whole 64 tile), N 40, P 24, one chunk and three; N and P past one
+    tile, with 4-byte copies (N 70, then P 21 and N 37); four row tiles
+    at the mamba2 row's widths."""
+    return (dict(Bz=1, S=48, H=2, P=24, N=40, chunk=48),
+            dict(Bz=2, S=144, H=3, P=24, N=40, chunk=48),
+            dict(Bz=1, S=192, H=2, P=80, N=70, chunk=96),
+            dict(Bz=1, S=192, H=2, P=21, N=37, chunk=96),
+            dict(Bz=1, S=512, H=2, P=64, N=128, chunk=256))
+
+
+def check_ssd_parts(rng, Bz, S, H, P, N, chunk, device,
+                    dtype=torch.float32) -> dict:
+    """Each SSD kernel (:data:`ssd_scan.PARTS`) against its plain version
+    on the same inputs, one launch each: the chunk states and cum from
+    the model's inputs; the scan over chunks and the chunk scan from the
+    plain version's own states and cum, so each kernel is held alone.
+    Tolerances, per implementation and doubled for two: cum, a sum of cs
+    terms in another order (``gamma(cs)`` of the running sum of |da|);
+    the chunk states, a sum of cs terms (``gamma(cs)``), a few ulps of
+    the products and the exp, and the exp's argument off by the cum's
+    error (``2 gamma(cs) cs max|da|``); the scan over chunks the same
+    rounded multiply and add in the same order, a few ulps of exp per
+    chunk; the chunk scan ``ssd_tolerance``'s terms without the cum's and
+    the carried state's. Each relative to the plain version run on
+    absolute values, capped at the JAX test's 3e-3 (plus one bf16 step
+    for a bf16 y). Returns the largest absolute difference by kernel."""
+    _no_tf32(device)
+    x, da, dt, B, C = ss.kernel_inputs(*ssd_operands(
+        rng, Bz, S, H, P, N, 1, device, dtype))
+    cs = ss.chunk_size(S, chunk)
+    nc = S // cs
+    err = {}
+    got_s, got_cum = ss.chunk_state(x, da, dt, B, cs)
+    want_s, want_cum = ss.chunk_state_plain(x, da, dt, B, cs)
+    run_abs = torch.cumsum(da.abs().transpose(1, 2).reshape(Bz, H, nc, cs),
+                           dim=-1).reshape(Bz, H, S)
+    e_cum = require_close("ssd_chunk_state cum", got_cum, want_cum,
+                          2 * gamma(cs) * run_abs.double())
+    terms, _ = ss.chunk_state_plain(x.float().abs(), da, dt.abs(), B.abs(),
+                                    cs)
+    da_max = da.abs().max().item()
+    rel = 2 * (gamma(cs) + 8 * U32 + 2 * gamma(cs) * cs * da_max)
+    err["ssd_chunk_state"] = max(e_cum, _capped(
+        "ssd_chunk_state", got_s, want_s, rel, terms, SSD_TOL))
+    got_h, got_f = ss.state_pass(want_s.clone(), want_cum, cs)
+    want_h, want_f = ss.state_pass_plain(want_s.clone(), want_cum, cs)
+    h_terms, f_terms = ss.state_pass_plain(want_s.abs(), want_cum, cs)
+    rel = 2 * (nc + 1) * 8 * U32
+    err["ssd_state_pass"] = max(
+        _capped("ssd_state_pass h_in", got_h, want_h, rel, h_terms, SSD_TOL),
+        _capped("ssd_state_pass state", got_f, want_f, rel, f_terms,
+                SSD_TOL))
+    got_y = ss.chunk_scan(x, dt, B, C, want_cum, want_h, cs)
+    want_y = ss.chunk_scan_plain(x, dt, B, C, want_cum, want_h, cs)
+    y_terms = ss.chunk_scan_plain(x.float().abs(), dt.abs(), B.abs(),
+                                  C.abs(), want_cum, want_h.abs(), cs)
+    rel = 2 * (2 * gamma(N) + gamma(cs) + 8 * U32)
+    err["ssd_chunk_scan"] = _capped("ssd_chunk_scan", got_y, want_y, rel,
+                                    y_terms, SSD_TOL)
+    return err
+
+
 MATMUL_TYPES = ((torch.float32, None), (torch.bfloat16, None),
                 (torch.bfloat16, torch.float32), (torch.int8, None))
 CONV_TYPES = ((torch.int32, 0), (torch.int32, 4), (torch.int32, 31),
@@ -672,6 +736,8 @@ def compute_kernel_cases() -> Sequence[Tuple[str, dict]]:
         ("ssd_scan", dict(Bz=1, S=100, H=3, P=20, N=12, G=1, chunk=256)),
         ("ssd_scan", dict(Bz=1, S=192, H=2, P=80, N=70, G=2, chunk=96)),
         ("ssd_scan", dict(Bz=1, S=1, H=1, P=1, N=1, G=1, chunk=1)),
+        ("ssd_scan", dict(Bz=1, S=48, H=2, P=24, N=40, G=1, chunk=48)),
+        ("ssd_scan", dict(Bz=2, S=144, H=3, P=24, N=40, G=1, chunk=48)),
     )
 
 
@@ -679,14 +745,16 @@ def case_paths(kernel: str) -> dict:
     """The launches of one :func:`check_compute_case` of ``kernel`` on
     the card, by path: the matmul's bf16 and int8 variants and bf16
     attention run the tensor-core kernels, float32 the CUDA-core ones;
-    the other kernels have CUDA-core kernels only."""
+    the other kernels have CUDA-core kernels only. A call of the SSD scan
+    is ``ssd_scan.LAUNCHES_PER_CALL`` launches."""
     types = {"spm_matmul": [dt for dt, _ in MATMUL_TYPES],
              "spm_conv2d": [dt for dt, _ in CONV_TYPES],
              "flash_attention": LM_TYPES, "ssd_scan": LM_TYPES}.get(
                  kernel, [torch.float32])
     mod = {"spm_matmul": sm, "flash_attention": fa}.get(kernel)
     tc = sum(mod.uses_tensor_cores(dt) for dt in types) if mod else 0
-    return {"tensor_cores": tc, "cuda_cores": len(types) - tc}
+    per_call = ss.LAUNCHES_PER_CALL if kernel == "ssd_scan" else 1
+    return {"tensor_cores": tc, "cuda_cores": (len(types) - tc) * per_call}
 
 
 def check_compute_case(rng, kernel: str, shape: dict, device) -> float:

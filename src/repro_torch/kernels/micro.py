@@ -352,6 +352,30 @@ def _ssd_cost(s: dict) -> Tuple[int, List[Tuple[int, str]]]:
     return nbytes, [(Bz * H * (S // cs) * per_chunk, "fp32")]
 
 
+def ssd_part_costs(s: dict) -> Dict[str, Tuple[int, List[Tuple[int, str]]]]:
+    """``(bytes, [(operations, "fp32")])`` of each SSD kernel alone: its
+    inputs read once (workspaces included), its outputs written once, a
+    multiply-add two operations. The chunk states and the chunk scan
+    split the function's products (:func:`_ssd_cost`); the scan over
+    chunks adds a multiply and an add per state element and chunk."""
+    size = torch.empty((), dtype=DTYPES[s["dtype"]]).element_size()
+    Bz, S, H, P, N = (s[c] for c in ("Bz", "S", "H", "P", "N"))
+    cs = min(s["chunk"], S)
+    nc = S // cs
+    x, row, bn = Bz * S * H * P * size, Bz * S * H * 4, Bz * S * H * N * 4
+    states, cum, state = Bz * H * nc * N * P * 4, Bz * H * S * 4, \
+        Bz * H * N * P * 4
+    chunks = Bz * H * nc
+    return {
+        "ssd_chunk_state": (x + 2 * row + bn + states + cum,
+                            [(chunks * 2 * cs * N * P, "fp32")]),
+        "ssd_state_pass": (2 * states + chunks * 4 + state,
+                           [(chunks * 2 * N * P, "fp32")]),
+        "ssd_chunk_scan": (2 * x + row + 2 * bn + cum + states, [(
+            chunks * (cs * (cs + 1) * (N + P) + 2 * cs * N * P), "fp32")]),
+    }
+
+
 def cost(w: Workload) -> Tuple[int, List[Tuple[int, str]]]:
     """``(bytes, [(operations, peak key), ...])``: each input read once
     and each output written once; a multiply-add counts as two
@@ -410,12 +434,13 @@ def device_us(ev) -> float:
                    getattr(ev, "self_cuda_time_total", 0.0))
 
 
-def timed(fn, reps: int, match: Optional[str] = None) -> dict:
+def timed(fn, reps: int, match=None) -> dict:
     """Two times per call of ``fn`` after a warm-up: ``call_ms`` from
     CUDA events around ``reps`` back-to-back calls (what a caller pays;
     host-bound when the host enqueues slower than the card runs), and
     ``device_ms`` from a ``torch.profiler`` trace of ``reps`` more calls:
-    the device time of events whose name contains ``match`` (every
+    the device time of events whose name contains ``match`` (a string, or
+    any of a tuple of strings, then also ``device_ms_by`` each; every
     device event when None), or None when the trace holds no device
     time; ``top_kernel`` names the device event that took the most (which
     backend a library call ran on)."""
@@ -436,12 +461,17 @@ def timed(fn, reps: int, match: Optional[str] = None) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (match,) if isinstance(match, str) else match
     events = [(device_us(ev), ev.key) for ev in prof.key_averages()
-              if match is None or match in ev.key]
+              if names is None or any(m in ev.key for m in names)]
     us = sum(t for t, _ in events)
     top = max(events, default=(0.0, None))
-    return dict(call_ms=call_ms, device_ms=us / 1e3 / reps or None,
-                top_kernel=top[1] if top[0] else None)
+    out = dict(call_ms=call_ms, device_ms=us / 1e3 / reps or None,
+               top_kernel=top[1] if top[0] else None)
+    if names is not None and len(names) > 1:
+        out["device_ms_by"] = {m: sum(t for t, k in events if m in k)
+                               / 1e3 / reps or None for m in names}
+    return out
 
 
 def times(kernel: dict, plain: dict, library: Optional[dict] = None) -> dict:
@@ -461,7 +491,7 @@ def times(kernel: dict, plain: dict, library: Optional[dict] = None) -> dict:
     return out
 
 
-def _reps(fn, budget_ms: float = 100.0) -> int:
+def reps_for(fn, budget_ms: float = 100.0) -> int:
     """Enough back-to-back calls to fill about ``budget_ms``, 3 to 200."""
     fn()
     torch.cuda.synchronize()
@@ -486,6 +516,43 @@ def tensor_core_call(w: Workload) -> bool:
 COUNTERS = ("launch_count", "tc_launch_count")
 
 
+def launches_per_call(kernel: str) -> int:
+    """Kernel launches of one call of the workload's kernel module: one,
+    or the SSD scan's three."""
+    return getattr(MODULES[kernel], "LAUNCHES_PER_CALL", 1)
+
+
+def device_names(kernel: str) -> Tuple[str, ...]:
+    """The device names of the module's kernels, as the profiler sees
+    them (each a substring of the event's name)."""
+    parts = getattr(MODULES[kernel], "PARTS", None)
+    return tuple(f"{p}_kernel" for p in parts) if parts else \
+        (f"{kernel}_kernel",)
+
+
+def save_counts() -> dict:
+    """Every kernel module's launch counters (and the SSD scan's by
+    kernel), to set back with :func:`restore_counts`."""
+    return {name: ({c: getattr(mod, c) for c in COUNTERS if hasattr(mod, c)},
+                   dict(getattr(mod, "part_launches", {})))
+            for name, mod in MODULES.items()}
+
+
+def restore_counts(saved: dict) -> None:
+    for name, (counts, parts) in saved.items():
+        mod = MODULES[name]
+        for c, n in counts.items():
+            setattr(mod, c, n)
+        if parts:
+            mod.part_launches.update(parts)
+
+
+def reset_counts() -> None:
+    """Every kernel module's launch counters to 0."""
+    restore_counts({name: ({c: 0 for c in counts}, dict.fromkeys(parts, 0))
+                    for name, (counts, parts) in save_counts().items()})
+
+
 def time_workload(w: Workload, x: dict) -> dict:
     """Kernel, plain and library times of one workload, beside its
     bound; ``path`` names the kernel that ran. A tensor-core product
@@ -494,20 +561,20 @@ def time_workload(w: Workload, x: dict) -> dict:
     nothing) and ``glue_call_ms``: the kernel's ``ms`` leaves it out,
     its ``call_ms`` holds it. The kernel's launch counters are restored
     afterwards: timing launches are not the main path's."""
-    mod = MODULES[w.kernel]
-    before = {c: getattr(mod, c) for c in COUNTERS if hasattr(mod, c)}
+    saved = save_counts()
     kern = lambda: run_kernel(w, x)                         # noqa: E731
     plain = lambda: run_plain(w, x)                         # noqa: E731
     lib = library_call(w, x)
-    t = times(timed(kern, _reps(kern), f"{w.kernel}_kernel"),
-              timed(plain, _reps(plain)),
-              None if lib is None else timed(lib, _reps(lib)))
-    for c, n in before.items():
-        setattr(mod, c, n)
+    k = timed(kern, reps_for(kern), device_names(w.kernel))
+    t = times(k, timed(plain, reps_for(plain)),
+              None if lib is None else timed(lib, reps_for(lib)))
+    if "device_ms_by" in k:
+        t["device_ms_by"] = k["device_ms_by"]
+    restore_counts(saved)
     t["path"] = "tensor cores" if tensor_core_call(w) else "CUDA cores"
     if w.kernel == "spm_matmul" and tensor_core_call(w):
         glue = lambda: sm.tc_operands(x["a"], x["b"])       # noqa: E731
-        g = timed(glue, _reps(glue))
+        g = timed(glue, reps_for(glue))
         t.update(glue_ms=g["device_ms"], glue_call_ms=g["call_ms"])
     return dict(t, **bound(*cost(w)))
 

@@ -163,7 +163,8 @@ def test_compute_kernel_equals_plain_at_card_scale(card, name):
     tc_before = getattr(mod, "tc_launch_count", 0)
     out = micro.run_kernel(w, x)
     torch.cuda.synchronize()
-    assert mod.launch_count == before + 1        # the composite too: ONE
+    # one launch a call (the composite too: ONE); the SSD scan's three
+    assert mod.launch_count == before + micro.launches_per_call(w.kernel)
     assert getattr(mod, "tc_launch_count", 0) == \
         tc_before + micro.tensor_core_call(w)
     micro.compare_plain(w, x, out)
@@ -215,13 +216,50 @@ def test_lm_kernel_launch_errors_raise(card):
     assert rc != 0
     with pytest.raises(ValueError, match="exceeds 128"):
         fa.flash_attention(x, x[:, :1], x[:, :1])
-    rc = ss._library().ssd_scan_launch(
-        0, x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-        x.data_ptr(), x.data_ptr(), x.data_ptr(), 1, 100, 1, 4, 4, 32,
-        stream)
-    assert rc != 0                                  # S not a multiple of cs
+    lib, p = ss._library(), x.data_ptr()
+    # S not a multiple of cs, for each of the three kernels
+    assert lib.ssd_chunk_state_launch(0, p, p, p, p, p, p, 1, 100, 1, 4, 4,
+                                      32, stream) != 0
+    assert lib.ssd_state_pass_launch(p, p, p, 1, 100, 1, 4, 4, 32,
+                                     stream) != 0
+    assert lib.ssd_chunk_scan_launch(0, p, p, p, p, p, p, p, 1, 100, 1, 4,
+                                     4, 32, stream) != 0
+    # the chunk scan's 64 x N tile of C past 227 KB (N 656 at chunk 256)
+    assert max(ss.smem_bytes(656, 256).values()) > ss.MAX_SMEM
+    assert lib.ssd_chunk_scan_launch(0, p, p, p, p, p, p, p, 1, 256, 1, 4,
+                                     656, 256, stream) != 0
     big = torch.zeros((1, 256, 1, 128), device=card)
     dt = torch.zeros((1, 256, 1), device=card)
+    before = ss.launch_count
     with pytest.raises(ValueError, match="shared memory"):
-        ss.ssd_scan(big, dt, dt, torch.zeros((1, 256, 1, 256), device=card),
-                    torch.zeros((1, 256, 1, 256), device=card))
+        ss.ssd_scan(big, dt, dt, torch.zeros((1, 256, 1, 656), device=card),
+                    torch.zeros((1, 256, 1, 656), device=card))
+    assert ss.launch_count == before
+
+
+@pytest.mark.parametrize("dtype", checks.LM_TYPES, ids=str)
+@pytest.mark.parametrize("shape", checks.ssd_part_cases(),
+                         ids=lambda s: "-".join(f"{k}{v}"
+                                                for k, v in s.items()))
+def test_ssd_kernels_equal_their_plain_versions(card, shape, dtype):
+    """Each of the three SSD kernels alone, one launch each, against its
+    plain version on the same CUDA tensors."""
+    from repro_torch.kernels import ssd_scan as ss
+    before = dict(ss.part_launches)
+    err = checks.check_ssd_parts(np.random.default_rng(11), device=card,
+                                 dtype=dtype, **shape)
+    torch.cuda.synchronize()
+    assert set(err) == set(ss.PARTS)
+    assert ss.part_launches == {k: n + 1 for k, n in before.items()}
+
+
+def test_ssd_scan_of_a_wide_state(card):
+    """N 256 with P 128 (which the single-block kernel refused for shared
+    memory) against the plain version, float32 and bf16 x."""
+    from repro_torch.kernels import ssd_scan as ss
+    before = ss.launch_count
+    for dt in checks.LM_TYPES:
+        checks.check_ssd(np.random.default_rng(12), 1, 512, 2, 128, 256, 1,
+                         256, card, dt)
+    torch.cuda.synchronize()
+    assert ss.launch_count == before + 2 * ss.LAUNCHES_PER_CALL

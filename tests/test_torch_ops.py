@@ -231,5 +231,14 @@ def test_chip_smoke_lm_phase_rehearsed_on_the_cpu(capsys):
     assert {k for k, _, _ in smoke.KERNELS} == set(micro.MODULES) | {
         "fused_vops", "kdotp"}
     assert len(smoke.KERNELS) == 8
+    # the JSON lists the SSD scan as its three kernels, each with the
+    # scan's source and TPU kernel
+    from repro_torch.kernels import ssd_scan as ss
+    rows = smoke.json_rows(ss.PARTS)
+    assert [n for n, _, _ in rows] == [k for k, _, _ in smoke.KERNELS
+                                       if k != "ssd_scan"] + list(ss.PARTS)
+    assert {(src, rep) for n, src, rep in rows if n in ss.PARTS} == {
+        ("src/repro_torch/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd_scan.py:24")}
     assert set(smoke.SLICE2) | set(smoke.SLICE3) == set(micro.MODULES)
     assert {w.kernel for w in micro.CARD} == set(micro.MODULES)

@@ -18,7 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan
 from repro.models import ssm as jssm
-from repro_torch.kernels import ops
+from repro_torch.kernels import checks, micro, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kvi import array_from_reference
@@ -129,7 +129,106 @@ def test_sequence_not_a_multiple_of_the_chunk_raises():
 
 
 def test_shared_memory_of_the_mamba2_row():
-    """The kernel's shared memory at the mamba2-1.3b row (N 128, P 64,
-    chunk 256) fits a block's 227 KB; a wider state does not."""
-    assert ss.smem_bytes(128, 64, 256) == 183040 <= ss.MAX_SMEM
-    assert ss.smem_bytes(256, 128, 256) > ss.MAX_SMEM
+    """The kernels' shared memory at the mamba2-1.3b row (N 128, P 64,
+    chunk 256): each at most 110 KB, so two blocks fit an SM's 228 KB.
+    P takes none (it is tiled in the grid), so N 256 with P 128 fits
+    too; the chunk scan's 64 x N tile of C reaches a block's 227 KB past
+    N 608."""
+    row = ss.smem_bytes(128, 256)
+    assert row == {"ssd_chunk_state": 37888, "ssd_state_pass": 0,
+                   "ssd_chunk_scan": 97792}
+    assert 2 * max(row.values()) <= 228 * 1024
+    assert max(ss.smem_bytes(256, 256).values()) <= ss.MAX_SMEM
+    assert max(ss.smem_bytes(608, 256).values()) <= ss.MAX_SMEM \
+        < max(ss.smem_bytes(609, 256).values())
+    assert ss.smem_bytes(128, 64)["ssd_chunk_state"] < row["ssd_chunk_state"]
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 64), (160, 32)],
+                         ids=["one_chunk", "five_chunks"])
+def test_three_plain_steps_vs_the_reference(S, chunk):
+    """The chunk states, the scan over chunks and the chunk scan, composed
+    by hand, against the Pallas kernel (interpret mode) and
+    ``ssd_chunked`` at S / cs = 1 and 5."""
+    Bz, H, P, N, G = 2, 4, 16, 8, 2
+    args = _inputs(np.random.default_rng(S + 9), Bz, S, H, P, N, G)
+    y_p, s_p = jops.ssd_scan_op(*args, chunk=chunk, interpret=True)
+    y_m, s_m = jssm.ssd_chunked(*args, chunk=chunk)
+    x, da, dt, Bh, Ch = ss.kernel_inputs(*_port(args))
+    cs = ss.chunk_size(S, chunk)
+    states, cum = ss.chunk_state_plain(x, da, dt, Bh, cs)
+    assert tuple(states.shape) == (Bz, H, S // cs, N, P)
+    assert tuple(cum.shape) == (Bz, H, S)
+    h_in, state = ss.state_pass_plain(states, cum, cs)
+    assert h_in is states and torch.all(h_in[:, :, 0] == 0)
+    y = ss.chunk_scan_plain(x, dt, Bh, Ch, cum, h_in, cs)
+    for got_y, got_s in ((y, state), ss.ssd_scan(x, da, dt, Bh, Ch,
+                                                  chunk=chunk)):
+        _close(got_y, y_p)
+        _close(got_s, s_p)
+        _close(got_y, y_m)
+        _close(got_s.transpose(-1, -2), s_m)
+
+
+def test_kernel_wrappers_on_cpu_run_their_plain_versions():
+    """On CPU tensors each of the three wrappers is its plain version and
+    counts no launch."""
+    x, da, dt, Bh, Ch = ss.kernel_inputs(*_port(_inputs(
+        np.random.default_rng(10), 1, 96, 2, 8, 6, 1, jnp.bfloat16)))
+    before = (ss.launch_count, dict(ss.part_launches))
+    states, cum = ss.chunk_state(x, da, dt, Bh, 32)
+    want_states, want_cum = ss.chunk_state_plain(x, da, dt, Bh, 32)
+    assert torch.equal(states, want_states) and torch.equal(cum, want_cum)
+    h_in, state = ss.state_pass(states.clone(), cum, 32)
+    want_h, want_state = ss.state_pass_plain(states.clone(), cum, 32)
+    assert torch.equal(h_in, want_h) and torch.equal(state, want_state)
+    y = ss.chunk_scan(x, dt, Bh, Ch, cum, h_in, 32)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, ss.chunk_scan_plain(x, dt, Bh, Ch, cum, h_in, 32))
+    assert (ss.launch_count, ss.part_launches) == before
+    assert ss.LAUNCHES_PER_CALL == len(ss.PARTS) == 3
+
+
+@pytest.mark.parametrize("Bz,H,S,P,cs", [(2, 3, 256, 64, 256),
+                                         (1, 2, 144, 24, 48),
+                                         (2, 2, 192, 130, 96),
+                                         (1, 1, 16, 8, 16)])
+def test_chunk_scan_blocks_run_longest_first(Bz, H, S, P, cs):
+    """The chunk scan's block order (``scan_block_order``, the kernel's
+    decoding of blockIdx.x): every (row tile, b, h, chunk, P tile)
+    exactly once, and a block never does more column tiles than one
+    before it (row tile i does i + 1)."""
+    order = ss.scan_block_order(Bz, H, S, P, cs)
+    ntile, npt = -(-cs // ss.TILE), -(-P // ss.TILE)
+    assert sorted(order) == sorted(
+        (it, b, h, c, pt) for it in range(ntile) for b in range(Bz)
+        for h in range(H) for c in range(S // cs) for pt in range(npt))
+    work = [it + 1 for it, *_ in order]
+    assert work == sorted(work, reverse=True)
+    assert work[0] == ntile
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_part_checks_rehearsed_on_the_cpu(dtype):
+    """``checks.check_ssd_parts`` at its odd shapes on the CPU, where
+    both sides are the plain versions: every difference is 0."""
+    for shape in checks.ssd_part_cases()[:4]:
+        err = checks.check_ssd_parts(np.random.default_rng(1), device="cpu",
+                                     dtype=dtype, **shape)
+        assert err == dict.fromkeys(ss.PARTS, 0.0)
+
+
+def test_kernel_costs_split_the_function():
+    """The chunk states and the chunk scan split the function's products
+    (``micro.cost``); the scan over chunks moves the workspace twice."""
+    w = next(w for w in micro.CARD if w.name == "ssd_mamba2-1.3b_4096")
+    parts = micro.ssd_part_costs(w.shape)
+    assert set(parts) == set(ss.PARTS)
+    nbytes, ops_terms = micro.cost(w)
+    assert parts["ssd_chunk_state"][1][0][0] + \
+        parts["ssd_chunk_scan"][1][0][0] == ops_terms[0][0]
+    states = 2 * 64 * 16 * 128 * 64 * 4
+    assert parts["ssd_state_pass"][0] == 2 * states + 2 * 64 * 16 * 4 \
+        + 2 * 64 * 128 * 64 * 4
+    assert micro.bound(*parts["ssd_state_pass"])["bound_by"] == "bytes"
+    assert micro.bound(*parts["ssd_chunk_scan"])["bound_by"] == "operations"
