@@ -6,10 +6,16 @@
 Needs one CUDA card, ``nvcc`` and this checkout (``src/repro_torch``);
 imports nothing of JAX or of the reference package ``repro``. Phases:
 
-1. build   — compile the eight CUDA sources of ``src/repro_torch/csrc/``
+1. build   — compile the nine CUDA sources of ``src/repro_torch/csrc/``
    for sm_90a, one ``nvcc`` per source, in parallel;
 2. check   — each kernel against its plain PyTorch version on the same
-   CUDA tensors: slice 1's at the KVI path's shapes, bit for bit; the
+   CUDA tensors: the KVI walk kernel (``kvi_walk``) against
+   ``run_walk_plain`` bit for bit on every main-path structure, on
+   random programs at eb 1/2/4, on the walk's edge programs (overlapping
+   kvcp, hazard regions, a kmemld after a kmemstr, unsigned buffers,
+   narrow reduction dsts) and in both arena layouts (a register file
+   above the shared-memory cap); slice 1's per-step kernels at the KVI
+   path's shapes, bit for bit; the
    four compute kernels, flash attention and the SSD scan at odd shapes
    (no dimension a multiple of a tile; one matmul of whole tiles),
    integers bit for bit, floats within error bounds, with the per-path
@@ -27,7 +33,11 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    FFT-256, streamed matmul 64x64 (kdotp and kdotpps), pipeline_demo and
    the composite conv / FFT / matmul workload on 3 harts; outputs held
    bit for bit against numpy formulas and against the CPU backend on the
-   first 4 instances; the launch counters must show both kernels ran;
+   first 4 instances; every run must be one ``kvi_walk`` launch per
+   structural group and no ``fused_vops`` or ``kdotp`` launch; the warm
+   run's host split (input stacking, the walk, output unpacking) is
+   printed; then the KVI intrinsics (``ops`` element-wise and reduction
+   calls), one ``fused_vops`` / ``kdotp`` launch each;
 4. slice 2 — the paper's compute kernels at card scale through the
    intrinsics layer ``repro_torch.kernels.ops`` (matmul bf16 / int8 /
    f32, conv2d int32 F = 3 and 11 and f32, FFT 16384 x 256 and
@@ -46,15 +56,18 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    numpy formula on sampled heads and rows;
 5. time    — each kernel at main-path shapes with ``torch.profiler`` and
    CUDA events, beside its plain version, its bound and (where one
-   exists) a PyTorch library call computing the same function; for the
-   compute and LM kernels every workload of phase 4, with the path that
-   ran and, for a tensor-core product, the time of its operand glue.
+   exists) a PyTorch library call computing the same function; the walk
+   kernel per main-path structure beside the per-step route it replaced;
+   for the compute and LM kernels every workload of phase 4, with the
+   path that ran and, for a tensor-core product, the time of its operand
+   glue.
 
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers
 (``spm_matmul`` and ``flash_attention`` with their main-path launches by
 path; the SSD scan as its three kernels, each with the whole call under
-``scan``) and ``{"ok": true, "device": {...}}``.
+``scan``; ``kvi_walk`` with every main-path structure under
+``workloads``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -228,8 +241,8 @@ def check_against_cpu(name, workload, res, cpu):
 
 def device_time_ms(fn, *args):
     """``fn(*args)`` under ``torch.profiler``: its result, and its device
-    time by kind — the two kernels, memcpy (host <-> device) and other
-    device work (the walk's device copies, fills) — or None when the
+    time by kind — the walk kernel, memcpy (host <-> device) and other
+    device work — or None when the
     trace holds no device time (the profiler may not see the card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -239,13 +252,12 @@ def device_time_ms(fn, *args):
                              ProfilerActivity.CUDA]) as prof:
         result = fn(*args)
         torch.cuda.synchronize()
-    by = {"fused_vops": 0.0, "kdotp": 0.0, "memcpy": 0.0, "other": 0.0}
+    by = {"kvi_walk": 0.0, "memcpy": 0.0, "other": 0.0}
     for ev in prof.key_averages():
         us = device_us(ev)
         if not us:
             continue
-        kind = ("fused_vops" if "fused_vops_kernel" in ev.key else
-                "kdotp" if "reduce_rows_kernel" in ev.key else
+        kind = ("kvi_walk" if "kvi_walk_kernel" in ev.key else
                 "memcpy" if ev.key.startswith("Memcpy") else "other")
         by[kind] += us / 1e3
     total = sum(by.values())
@@ -262,27 +274,40 @@ def run_slice(device, rng, scale=1, log=print):
     from repro_torch.kvi import get_backend
     be = get_backend("torch", device=device, passes=())
     cpu = get_backend("torch", device="cpu", passes=())
+    on_card = torch.device(device).type == "cuda"
     records = []
     for name, wl, want in main_path_workloads(rng, scale):
-        cold = be.run_workload(wl)
-        warm = be.run_workload(wl)
+        walks = [be.walk_calls]
+
+        def run(wl=wl, walks=walks):
+            r = be.run_workload(wl)
+            walks.append(be.walk_calls)
+            return r
+        cold = run()
+        warm = run()
+        host = {k: round(v, 6) for k, v in be.host_s.items()}
         for r in (cold, warm):
             check_outputs(name, r, want)
             if r.meta["kernel_launches"] <= 0:
-                raise AssertionError(f"{name}: no kernel launches")
+                raise AssertionError(f"{name}: no regions or reductions")
         check_against_cpu(name, wl, cold, cpu)
         if warm.meta["compile_cache"]["misses"]:
             raise AssertionError(f"{name}: the warm run rebuilt records")
         runs = [cold, warm]
         dev_ms = None
-        if torch.device(device).type == "cuda":
-            profiled, dev_ms = device_time_ms(be.run_workload, wl)
+        if on_card:
+            profiled, dev_ms = device_time_ms(run)
             runs.append(profiled)
+        per_run = [b - a for a, b in zip(walks, walks[1:])]
+        want_walks = cold.meta["groups"] if on_card else 0
+        if per_run != [want_walks] * len(runs):
+            raise AssertionError(f"{name}: walk launches per run {per_run}, "
+                                 f"want {want_walks} (one per group)")
         rec = dict(phase=name, N=len(wl.entries),
                    groups=cold.meta["groups"],
+                   walk_launches=sum(per_run),
                    kernel_launches=cold.meta["kernel_launches"],
-                   launches_all_runs=sum(r.meta["kernel_launches"]
-                                         for r in runs),
+                   host_split_warm_s=host,
                    compile_cache_cold=cold.meta["compile_cache"],
                    compile_cache_warm=warm.meta["compile_cache"],
                    cold_wall_s=cold.meta["wall_s"],
@@ -294,9 +319,172 @@ def run_slice(device, rng, scale=1, log=print):
         records.append(rec)
         log(f"[slice] {json.dumps(rec)}")
         del cold, warm, runs
-        if torch.device(device).type == "cuda":
+        if on_card:
             torch.cuda.empty_cache()
     return be, records
+
+
+def main_path_structures(rng, scale: int = 1):
+    """(name, prototype, N) of the main path's six structures, N as
+    phase 3 runs them (divided by ``scale``)."""
+    return [("conv32_f3", conv_instances(rng, 1, F=3)[0][0], 1024 // scale),
+            ("conv32_f11", conv_instances(rng, 1, F=11)[0][0],
+             1024 // scale),
+            ("fft256", fft_instances(rng, 1)[0][0], 1024 // scale),
+            ("matmul64_kdotp", matmul_instances(rng, 1)[0][0], 128 // scale),
+            ("matmul64_kdotpps", matmul_instances(rng, 1, shift=8)[0][0],
+             128 // scale),
+            ("pipeline_demo", demo_instances(rng, 1)[0][0], 1024 // scale)]
+
+
+def check_walks(rng, device, scale: int = 1, big_lanes: int = 30000):
+    """Phase 2 for the walk kernel: ``checks.check_walk`` (the kernel
+    against ``run_walk_plain`` on the same tensors, every store stack
+    bit for bit) on every main-path structure at its batch, conv32_f3
+    again in the global layout over a grid of 7 blocks (rows stride over
+    it), random programs at eb 1/2/4 (one over a grid of 5), and every
+    edge program of ``checks.walk_edge_programs`` (the hazard one in
+    both layouts). Returns the number of cases and the layouts seen."""
+    from repro_torch.kernels import checks
+    from repro_torch.kvi.ir import KviProgramBuilder
+    cases = []
+    for name, proto, N in main_path_structures(rng, scale):
+        walk = checks.compile_walk(proto)
+        cases.append((name, walk, N, {}))
+        if name == "conv32_f3":
+            cases.append((name + " global", walk, N,
+                          dict(smem_cap=0, max_grid=7)))
+    for eb in (1, 2, 4):
+        for seed in range(2):
+            walk = checks.compile_walk(checks.random_kvi_program(
+                KviProgramBuilder, np.random.default_rng(100 * eb + seed), eb))
+            cases.append((f"random eb{eb} #{seed}", walk, 37,
+                          dict(max_grid=5) if seed else {}))
+    for name, prog in checks.walk_edge_programs(
+            KviProgramBuilder, rng, big_lanes).items():
+        walk = checks.compile_walk(prog)
+        cases.append((name, walk, 33, {}))
+        if name == "hazard":
+            cases.append((name + " global", walk, 33, dict(smem_cap=0)))
+    layouts = set()
+    for _name, walk, N, opts in cases:
+        layouts.add(checks.check_walk(rng, walk, max(2, N), device,
+                                      **opts).layout)
+    return {"cases": len(cases), "layouts": layouts}
+
+
+def run_intrinsics(rng, device):
+    """The KVI intrinsics of ``repro_torch.kernels.ops`` on the device at
+    the main path's widths (1024 instances of 1024 int32 lanes for the
+    element-wise calls, a 65536-element dot product for the reductions),
+    each against a numpy formula bit for bit. Returns the number of
+    element-wise and reduction calls."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.checks import random_ints
+    a, w, b = (random_ints(rng, (1024, 1024), torch.int32, device)
+               for _ in range(3))
+    x, y = (random_ints(rng, (65536,), torch.int32, device)
+            for _ in range(2))
+    A, W, B = (t.cpu().numpy().astype(np.int64) for t in (a, w, b))
+    X, Y = (t.cpu().numpy().astype(np.int64) for t in (x, y))
+    w32 = lambda v: v.astype(np.int32)                       # noqa: E731
+    ew = {"fused_mac_relu": (ops.fused_mac_relu(a, w, b, 5),
+                             np.maximum(w32(w32(A * W) + B) >> 5, 0)),
+          "kaddv": (ops.kaddv(a, b), w32(A + B)),
+          "ksvmulsc": (ops.ksvmulsc(a, 77), w32(A * 77))}
+    red = {"kdotp": (ops.kdotp(x, y), w32(np.sum(X * Y))),
+           "kdotpps": (ops.kdotpps(x, y, 8), w32(np.sum(X * Y)) >> 8),
+           "kvred": (ops.kvred(x), w32(np.sum(X)))}
+    for name, (got, want) in {**ew, **red}.items():
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError(f"ops.{name} differs from its numpy formula")
+    return len(ew), len(red)
+
+
+def walk_cost(walk, record, N):
+    """Bytes (each input stack read once, each store stack written once)
+    and 32-bit integer operations (an op a lane of a fused step, two a
+    lane pair of a dot product, one a lane of a sum) of one walk over N
+    instances."""
+    nbytes = N * sum(w * np.dtype(h).itemsize
+                     for h, w in walk.in_width.items())
+    nbytes += N * sum(w * dt.itemsize for dt, w in walk.st_width.items())
+    ops = 0
+    for step in walk.steps:
+        if step[0] == "fused":
+            ops += len(step[1].ops) * step[3].n
+        elif step[0] == "reduce":
+            ops += step[4] * (2 if step[7] is not None else 1)
+    return nbytes, ops * N
+
+
+def events_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` over ``reps`` back-to-back calls
+    after one warm-up, from CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_walks(rng, device, sweep=(32, 64, 128)):
+    """The walk kernel per main-path structure at its batch (one launch),
+    beside the per-step route it replaced (``run_walk_per_step``: one
+    ``fused_vops`` / ``kdotp`` launch per step, one device copy per copy
+    step; its device total from a profiler trace of one call), its plain
+    version (CUDA events) and its bound, and at each block size of
+    ``sweep``. The walk's ``ms`` is its CUDA-event time over back-to-back
+    launches (the launch is all its call does); ``profiler_ms`` is what a
+    profiler trace of as many launches holds, which can miss launches of
+    the longer walks. Launch counters are set back afterwards."""
+    import torch
+    from repro_torch.kernels import checks, micro
+    from repro_torch.kernels import fused_vops as fv
+    from repro_torch.kernels import kdotp as kd
+    from repro_torch.kernels import kvi_walk as kw
+    saved = (fv.launch_count, kd.launch_count, kw.launch_count)
+    out = {}
+    for name, proto, N in main_path_structures(rng):
+        walk = checks.compile_walk(proto)
+        record = kw.pack_walk(walk)
+        ins = [checks.random_stack(rng, k, N, record.width(k), device)
+               for k in record.in_keys]
+        sts = [torch.empty((N, record.width(k)), dtype=k[1], device=device)
+               for k in record.st_keys]
+
+        def call(f, rec=record, ins=ins, sts=sts, N=N):
+            return lambda: f(rec, ins, sts, N)
+        walk_fn = call(kw.run_walk)
+        reps = micro.reps_for(walk_fn)
+        prof = micro.timed(walk_fn, reps, "kvi_walk_kernel")
+        ms = prof["call_ms"]
+        step = micro.timed(call(kw.run_walk_per_step), 1)
+        plain_ms = events_ms(call(kw.run_walk_plain), 1)
+        nbytes, ops = walk_cost(walk, record, N)
+        b = micro.bound(nbytes, [(ops, "int32")])
+        out[name] = dict(
+            ms=ms, ms_source="events", call_ms=ms,
+            profiler_ms=prof["device_ms"], plain_ms=plain_ms,
+            plain_call_ms=plain_ms, library_ms=None, library_call_ms=None,
+            **b, per_step_ms=step["device_ms"],
+            per_step_call_ms=step["call_ms"], N=N, steps=record.n_steps,
+            threads=record.threads, smem_bytes=record.smem_bytes,
+            layout=record.layout, ring=record.ring,
+            barriers=record.counts["barriers"],
+            threads_sweep_ms={t: events_ms(call(kw.run_walk, kw.pack_walk(
+                walk, threads=t)), reps) for t in sweep})
+        del ins, sts
+        torch.cuda.empty_cache()
+    fv.launch_count, kd.launch_count, kw.launch_count = saved
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -706,12 +894,19 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build, checks, micro
     from repro_torch.kernels import fused_vops as fv
     from repro_torch.kernels import kdotp as kd
+    from repro_torch.kernels import kvi_walk as kw
     from repro_torch.kernels import ssd_scan as ss
 
     device = torch.device("cuda", torch.cuda.current_device())
     micro.card_settings()
     card = micro.card_line()
     t0 = time.perf_counter()
+    t_phase = [t0]
+
+    def stamp(phase):
+        now = time.perf_counter()
+        print(f"[phase] {phase}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
 
     # 1. build -------------------------------------------------------------
     nvcc = build.nvcc_path()
@@ -730,9 +925,22 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
+    stamp("build")
+
     # 2. kernel vs plain on the card ---------------------------------------
     rng = np.random.default_rng(args.seed)
-    err = {"fused_vops": 0.0, "kdotp": 0.0}
+    before = kw.launch_count
+    walk_checks = check_walks(rng, device)
+    torch.cuda.synchronize()
+    if kw.launch_count - before != walk_checks["cases"] or \
+            walk_checks["layouts"] != {"shared", "global"}:
+        raise AssertionError(f"walk checks {walk_checks}: "
+                             f"{kw.launch_count - before} launches")
+    print(f"[check] kvi_walk equals run_walk_plain bit for bit in "
+          f"{walk_checks['cases']} cases (main-path structures, random "
+          f"programs at eb 1/2/4, edge programs; layouts "
+          f"{sorted(walk_checks['layouts'])}); card: {card}")
+    err = {"kvi_walk": 0.0, "fused_vops": 0.0, "kdotp": 0.0}
     for label, shape in checks.main_path_cases():
         if label.startswith("fused"):
             for dt in (torch.int8, torch.int16, torch.int32):
@@ -792,22 +1000,37 @@ def main(argv=None) -> int:
 
     inputs = {}
 
+    stamp("check")
+
     # 3. slice 1 on the card -----------------------------------------------
-    fv.launch_count = 0
-    kd.launch_count = 0
+    fv.launch_count = kd.launch_count = kw.launch_count = 0
     _, records = run_slice(device, rng,
                            log=lambda m: print(f"{m}; card: {card}"))
-    launches = {"fused_vops": fv.launch_count, "kdotp": kd.launch_count}
-    total = sum(r["launches_all_runs"] for r in records)
-    if launches["fused_vops"] <= 0 or launches["kdotp"] <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
-    if sum(launches.values()) != total:
-        raise AssertionError(f"launch counters {launches} disagree with "
-                             f"the backend's kernel_launches {total}")
+    launches = {"kvi_walk": kw.launch_count}
+    walked = sum(r["walk_launches"] for r in records)
+    if fv.launch_count or kd.launch_count:
+        raise AssertionError(f"the KVI path launched per-step kernels: "
+                             f"fused_vops {fv.launch_count}, kdotp "
+                             f"{kd.launch_count}")
+    if not 0 < launches["kvi_walk"] == walked:
+        raise AssertionError(f"kvi_walk launches {launches['kvi_walk']} "
+                             f"disagree with the groups walked {walked}")
     print(f"[slice] launches over the main path (cold, warm and "
-          f"profiled runs): "
-          f"{launches}; card: {card}")
+          f"profiled runs): {launches}, none of fused_vops or kdotp; "
+          f"card: {card}")
+    fv.launch_count = kd.launch_count = 0
+    n_ew, n_red = run_intrinsics(rng, device)
+    torch.cuda.synchronize()
+    launches.update(fused_vops=fv.launch_count, kdotp=kd.launch_count)
+    if (fv.launch_count, kd.launch_count) != (n_ew, n_red):
+        raise AssertionError(f"KVI intrinsics: {launches}, want one launch "
+                             f"a call ({n_ew} element-wise, {n_red} "
+                             f"reductions)")
+    print(f"[intrinsics] ops element-wise and reduction calls equal their "
+          f"numpy formulas, one launch each: fused_vops {n_ew}, kdotp "
+          f"{n_red}; card: {card}")
+
+    stamp("slice 1")
 
     # 4. slices 2 and 3 on the card ----------------------------------------
     paths = {}
@@ -829,11 +1052,19 @@ def main(argv=None) -> int:
               f"{ {k: run_paths[k] for k in kernels if k in TC_KERNELS} }; "
               f"card: {card}")
 
+    stamp("slices 2 and 3")
+
     # 5. kernel times --------------------------------------------------------
+    walk_times = time_walks(rng, device)
+    for name, t in walk_times.items():
+        print(f"[time] kvi_walk {name}: {json.dumps(t)}; card: {card}")
     times = {"fused_vops": time_fused(rng, device),
              "kdotp": time_kdotp(rng, device)}
     for name, t in times.items():
         t["bound_ms"], t["bound_by"] = _bound(t)
+    times["kvi_walk"] = dict(walk_times[WALK_SHOWN], shape=WALK_SHOWN,
+                             workloads=walk_times,
+                             also_replaces=WALK_ALSO_REPLACES)
     by_kernel = {k: {} for k in micro.MODULES}
     for w in micro.CARD:
         x = inputs.pop(w.name)
@@ -863,7 +1094,7 @@ def main(argv=None) -> int:
         launches[part] = ssd_launches[part]
         err[part] = ssd_err[part]
     kernels = []
-    for name, source, replaces in json_rows(ss.PARTS):
+    for name, source, replaces in [WALK] + json_rows(ss.PARTS):
         t = times[name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
@@ -873,7 +1104,7 @@ def main(argv=None) -> int:
         entry.update({k: t[k] for k in ("ms_source", "call_ms",
                                         "plain_call_ms", "library_call_ms",
                                         "shape")})
-        for extra in ("kvred", "workloads", "scan"):
+        for extra in ("kvred", "workloads", "scan", "also_replaces"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in paths:
@@ -881,6 +1112,7 @@ def main(argv=None) -> int:
         kernels.append(entry)
         print(f"[time] {name} {t['shape']}: {json.dumps(entry)}; "
               f"card: {card}")
+    stamp("time")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -890,6 +1122,13 @@ def main(argv=None) -> int:
     return 0
 
 
+#: the KVI walk kernel: it replaces both TPU kernels of the KVI path
+#: there (the per-step kernels below stay for the intrinsics)
+WALK = ("kvi_walk", "src/repro_torch/csrc/kvi_walk.cu",
+        "src/repro/kvi/pallas_backend.py:134")
+WALK_ALSO_REPLACES = "src/repro/kernels/kdotp.py:21"
+#: the main-path structure whose walk numbers stand in its JSON entry
+WALK_SHOWN = "matmul64_kdotp"
 #: (kernel, source, the TPU kernel it replaces), in the order of the JSON
 KERNELS = (
     ("fused_vops", "src/repro_torch/csrc/fused_vops.cu",

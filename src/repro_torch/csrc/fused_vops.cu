@@ -26,54 +26,21 @@
 // another offset through scratch (the only case where one thread's
 // write could reach another thread's read).
 //
-// Arithmetic wraps like the paper's MFU datapath (repro/core/mfu.py):
-// add, sub and mul run in unsigned types (signed overflow is undefined
-// in C++) and truncate to the element width; immediates are int64,
-// wrapped into add and mul and compared exactly by ksvslt; a shift count
-// at or above the element width gives the sign fill (ksrav) or 0
-// (ksrlv), where C++ would leave it undefined.
+// Arithmetic: the MFU semantics of kvi_ops.cuh, shared with kdotp.cu and
+// kvi_walk.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "kvi_ops.cuh"
+
 namespace {
-
-// opcodes: the order of repro_torch/kernels/fused_vops.py::OPCODES
-enum Op { KADDV = 0, KSUBV, KVMUL, KSVADDSC, KSVMULSC, KSRLV, KSRAV, KRELU, KVSLT,
-          KSVSLT, KVCP };
-
-constexpr int kMaxOps = 64, kMaxIn = 24, kMaxOut = 64, kMaxSlots = kMaxIn + kMaxOps;
-constexpr int kNoSlot = 255;
 
 struct Windows {
   int64_t in_col[kMaxIn];
   int64_t out_col[kMaxOut];
 };
-
-template <typename T> struct Unsigned;
-template <> struct Unsigned<int8_t> { using type = uint8_t; };
-template <> struct Unsigned<int16_t> { using type = uint16_t; };
-template <> struct Unsigned<int32_t> { using type = uint32_t; };
-
-template <typename T>
-__device__ __forceinline__ T apply_op(int op, T a, T b, int64_t imm) {
-  using U = typename Unsigned<T>::type;
-  constexpr uint64_t kBits = 8 * sizeof(T);
-  switch (op) {
-    case KADDV: return (T)(U)((uint32_t)a + (uint32_t)b);
-    case KSUBV: return (T)(U)((uint32_t)a - (uint32_t)b);
-    case KVMUL: return (T)(U)((uint32_t)a * (uint32_t)b);
-    case KSVADDSC: return (T)(U)((uint64_t)(int64_t)a + (uint64_t)imm);
-    case KSVMULSC: return (T)(U)((uint64_t)(int64_t)a * (uint64_t)imm);
-    case KSRLV: return (uint64_t)imm >= kBits ? T(0) : (T)(U)((U)a >> (int)imm);
-    case KSRAV: return (T)(a >> ((uint64_t)imm >= kBits ? (int)kBits - 1 : (int)imm));
-    case KRELU: return a > T(0) ? a : T(0);
-    case KVSLT: return a < b ? T(1) : T(0);
-    case KSVSLT: return (int64_t)a < imm ? T(1) : T(0);
-    default: return a;                              // KVCP
-  }
-}
 
 template <typename T>
 __global__ void fused_vops_kernel(const int64_t* __restrict__ rec, int n_ops, int n_in,
@@ -97,12 +64,7 @@ __global__ void fused_vops_kernel(const int64_t* __restrict__ rec, int n_ops, in
     T slot[kMaxSlots];
     const T* s = src + row * src_stride + e;
     for (int k = 0; k < n_in; ++k) slot[in_slot[k]] = s[win.in_col[k]];
-    for (int i = 0; i < n_ops; ++i) {
-      const int64_t w = prog[2 * i];
-      const int op = (int)(w & 0xff), d = (int)((w >> 8) & 0xff);
-      const int s1 = (int)((w >> 16) & 0xff), s2 = (int)((w >> 24) & 0xff);
-      slot[d] = apply_op<T>(op, slot[s1], s2 == kNoSlot ? T(0) : slot[s2], prog[2 * i + 1]);
-    }
+    run_slot_ops<T>(slot, prog, n_ops);
     T* o = dst + row * dst_stride + e;
     for (int k = 0; k < n_out; ++k) o[win.out_col[k]] = slot[out_slot[k]];
   }

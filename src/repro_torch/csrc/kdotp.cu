@@ -29,54 +29,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kvi_ops.cuh"
+
 namespace {
 
 enum Dtype { I8 = 0, I16 = 1, I32 = 2, F32 = 3 };
-enum Post { POST_NONE = 0, POST_SHIFT = 1, POST_ADD = 2, POST_MUL = 3 };
-enum Mode { MODE_ORACLE = 0, MODE_WRAP32 = 1 };
-
 constexpr int kMaxThreads = 1024;
-
-__device__ __forceinline__ uint64_t widen(int8_t v) { return (uint64_t)(int64_t)v; }
-__device__ __forceinline__ uint64_t widen(int16_t v) { return (uint64_t)(int64_t)v; }
-__device__ __forceinline__ uint64_t widen(int32_t v) { return (uint64_t)(int64_t)v; }
-__device__ __forceinline__ float widen(float v) { return v; }
 
 template <typename T> struct AccOf { using type = uint64_t; };
 template <> struct AccOf<float> { using type = float; };
-
-template <typename Acc>
-__device__ __forceinline__ Acc warp_sum(Acc v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// integer flush: the 64-bit modular sum -> the destination element
-template <typename Tout>
-__device__ __forceinline__ Tout flush(uint64_t acc, int post, int64_t scalar, int mode) {
-  int64_t r;
-  if (mode == MODE_WRAP32) {
-    int32_t w = (int32_t)(uint32_t)acc;
-    if (post == POST_SHIFT) w >>= ((uint64_t)scalar >= 32 ? 31 : (int)scalar);
-    r = w;
-  } else if (post == POST_SHIFT) {
-    r = (int64_t)acc >> ((uint64_t)scalar >= 64 ? 63 : (int)scalar);
-  } else if (post == POST_ADD) {
-    r = (int64_t)(acc + (uint64_t)scalar);
-  } else if (post == POST_MUL) {
-    r = (int64_t)(acc * (uint64_t)scalar);
-  } else {
-    r = (int64_t)acc;
-  }
-  return (Tout)r;           // two's-complement wrap to the element width
-}
-
-// float flush: a shift divides by 2^shift
-template <typename Tout>
-__device__ __forceinline__ Tout flush(float acc, int post, int64_t scalar, int) {
-  return post == POST_SHIFT ? acc / ldexpf(1.0f, (int)scalar) : acc;
-}
 
 template <typename Tin, typename Tout>
 __global__ void reduce_rows_kernel(const Tin* a, const Tin* b, int64_t a_stride,

@@ -42,6 +42,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_vops as fv
 from repro_torch.kernels import het_mimd as hm
 from repro_torch.kernels import kdotp as kd
+from repro_torch.kernels import kvi_walk as kw
 from repro_torch.kernels import ops
 from repro_torch.kernels import spm_conv2d as sc
 from repro_torch.kernels import spm_fft as sf
@@ -198,6 +199,213 @@ def main_path_cases() -> Sequence[Tuple[str, dict]]:
             ("fused fft256 tail", dict(rows=1024, n=1)),
             ("fused pipeline_demo", dict(rows=1024, n=1024)),
             ("kdotp matmul64", dict(rows=128, n=64)))
+
+
+# ---------------------------------------------------------------------------
+# the KVI walk kernel (kvi_walk): programs, and the kernel against its plain
+# version on one packed table
+# ---------------------------------------------------------------------------
+
+NP_OF_EB = {1: np.int8, 2: np.int16, 4: np.int32}
+RED_OPS = ("kdotp", "kdotpps", "kvred", "ksvaddrf", "ksvmulrf")
+
+
+def random_kvi_program(program_cls, rng: np.random.Generator, eb: int,
+                       n_items: int = 40, L: int = 16):
+    """Random element-wise / reduction / copy traffic over overlapping
+    windows of a few registers of ``eb``-byte lanes, every register
+    stored at the end. ``program_cls`` is a ``KviProgramBuilder`` (the
+    port's, or the reference's in the tests)."""
+    info = np.iinfo(NP_OF_EB[eb])
+    b = program_cls("rand")
+    regs = [b.vreg(f"r{k}", L, eb) for k in range(4)]
+    for k in range(2):
+        b.kmemld(regs[k], b.mem_in(f"in{k}", rng.integers(
+            info.min, info.max + 1, L).astype(NP_OF_EB[eb]), elem_bytes=eb))
+
+    def win(n):
+        r = regs[int(rng.integers(len(regs)))]
+        off = int(rng.integers(0, L - n + 1))
+        return r.view(off, n)
+
+    ops = ("kaddv", "ksubv", "kvmul", "kvslt", "ksvaddsc", "ksvmulsc",
+           "ksrlv", "ksrav", "krelu", "ksvslt", "kvcp") + RED_OPS
+    for _ in range(n_items):
+        op = str(rng.choice(ops))
+        n = int(rng.choice([4, 8, 16]))
+        big = int(rng.integers(-(1 << 40), 1 << 40))
+        if op in ("kaddv", "ksubv", "kvmul", "kvslt"):
+            getattr(b, op)(win(n), win(n), win(n))
+        elif op in ("ksvaddsc", "ksvmulsc"):
+            getattr(b, op)(win(n), win(n), big)
+        elif op == "ksvslt":
+            b.ksvslt(win(n), win(n), int(rng.integers(-(1 << 31), 1 << 31)))
+        elif op in ("ksrlv", "ksrav"):
+            getattr(b, op)(win(n), win(n), int(rng.integers(0, 40)))
+        elif op in ("krelu", "kvcp"):
+            getattr(b, op)(win(n), win(n))
+        elif op in ("kdotp", "kdotpps"):
+            args = (win(1), win(n), win(n))
+            b.kdotp(*args) if op == "kdotp" else b.kdotpps(
+                *args, int(rng.integers(0, 70)))
+        elif op == "kvred":
+            b.kvred(win(1), win(n))
+        else:
+            getattr(b, op)(win(1), win(n), big)
+        b.scalar(int(rng.integers(0, 3)))
+    for k, r in enumerate(regs):
+        b.kmemstr(b.mem_out(f"out{k}", L, elem_bytes=eb), r)
+    return b.build()
+
+
+def walk_edge_programs(program_cls, rng: np.random.Generator,
+                       big_lanes: int = 30000) -> dict:
+    """Programs at the walk's hard spots, by name: overlapping ``kvcp``
+    (both directions, shorter and longer than a block), a hazard region
+    (an output window over an input window at another offset), a
+    ``kmemld`` after a ``kmemstr`` of the same buffer, unsigned and
+    64-bit ``mem_init`` into narrower lanes, reductions into narrower
+    dsts, register files of three widths side by side, and a register
+    file of ``big_lanes`` int32 lanes (above the shared-memory cap)."""
+    def ints(n, dt, lo=None, hi=None):
+        info = np.iinfo(dt)
+        return rng.integers(info.min if lo is None else lo,
+                            (info.max if hi is None else hi) + 1, n,
+                            dtype=np.int64).astype(dt)
+
+    progs = {}
+    b = program_cls("overlap_kvcp")
+    x = b.vreg("x", 320, 2)
+    b.kmemld(x, b.mem_in("in_x", ints(320, np.int16), elem_bytes=2))
+    b.kvcp(x.view(3, 24), x.view(0, 24))
+    b.kvcp(x.view(0, 24), x.view(5, 24))
+    b.kvcp(x.view(17, 300), x.view(2, 300))
+    b.kvcp(x.view(1, 300), x.view(9, 300))
+    b.kmemstr(b.mem_out("x", 320, elem_bytes=2), x)
+    progs["overlap_kvcp"] = b.build()
+
+    b = program_cls("hazard")
+    x, y = b.vreg("x", 300, 4), b.vreg("y", 300, 4)
+    b.kmemld(x, b.mem_in("in_x", ints(300, np.int32)))
+    b.kmemld(y, b.mem_in("in_y", ints(300, np.int32)))
+    b.kaddv(x.view(5, 290), x.view(0, 290), y.view(0, 290))
+    b.ksvmulsc(y.view(0, 290), y.view(3, 290), 77)
+    b.kmemstr(b.mem_out("x", 300), x)
+    b.kmemstr(b.mem_out("y", 300), y)
+    progs["hazard"] = b.build()
+
+    b = program_cls("load_after_store")
+    x, y = b.vreg("x", 48, 4), b.vreg("y", 48, 4)
+    tmp = b.mem_out("tmp", 48)
+    b.kmemld(x, b.mem_in("in_x", ints(48, np.int32)))
+    b.ksvaddsc(x, x, 7)
+    b.kmemstr(tmp, x)
+    b.kmemld(y, tmp)
+    b.kaddv(y, y, x)
+    b.kmemstr(b.mem_out("y", 48), y)
+    progs["load_after_store"] = b.build()
+
+    b = program_cls("unsigned_into_narrow")
+    a8, a16, a32 = b.vreg("a8", 40, 1), b.vreg("a16", 40, 2), \
+        b.vreg("a32", 40, 4)
+    c16 = b.vreg("c16", 40, 2)
+    b.kmemld(a8, b.mem_in("in_u16", ints(40, np.uint16), elem_bytes=1))
+    b.kmemld(a16, b.mem_in("in_u32", ints(40, np.uint32), elem_bytes=2))
+    b.kmemld(c16, b.mem_in("in_u8", ints(40, np.uint8), elem_bytes=2))
+    b.kmemld(a32, b.mem_in("in_i64", ints(40, np.int64)))
+    for name, r, eb in (("a8", a8, 1), ("a16", a16, 2), ("c16", c16, 2),
+                        ("a32", a32, 4)):
+        b.kmemstr(b.mem_out(name, 40, elem_bytes=eb), r)
+    progs["unsigned_into_narrow"] = b.build()
+
+    b = program_cls("narrow_dst_reduce")
+    x, y = b.vreg("x", 64, 4), b.vreg("y", 64, 4)
+    acc8, acc16 = b.vreg("acc8", 4, 1), b.vreg("acc16", 4, 2)
+    b.kmemld(x, b.mem_in("in_x", ints(64, np.int32)))
+    b.kmemld(y, b.mem_in("in_y", ints(64, np.int32)))
+    b.kdotp(acc8[0], x, y)
+    b.kvred(acc8[1], x)
+    b.ksvmulrf(acc8[2], x, 2_000_000_011)
+    b.kdotpps(acc16[0], x, y, 9)
+    b.ksvaddrf(acc16[1], y, -(1 << 40))
+    b.kdotpps(acc16[2], x, y, 70)
+    b.kmemstr(b.mem_out("acc8", 4, elem_bytes=1), acc8)
+    b.kmemstr(b.mem_out("acc16", 4, elem_bytes=2), acc16)
+    progs["narrow_dst_reduce"] = b.build()
+
+    b = program_cls("mixed_widths")
+    r = {eb: b.vreg(f"r{eb}", 96, eb) for eb in (1, 2, 4)}
+    t = {eb: b.vreg(f"t{eb}", 96, eb) for eb in (1, 2, 4)}
+    for eb in (1, 2, 4):
+        b.kmemld(r[eb], b.mem_in(f"r{eb}", ints(96, NP_OF_EB[eb]),
+                                 elem_bytes=eb))
+        b.kvmul(t[eb], r[eb], r[eb])
+        b.ksvaddsc(t[eb], t[eb], 1000)
+        b.ksrav(t[eb], t[eb], 3)
+    b.kvred(t[1][95], r[1])
+    b.kdotp(t[2][0], r[2], t[2])
+    for eb in (1, 2, 4):
+        b.kmemstr(b.mem_out(f"t{eb}", 96, elem_bytes=eb), t[eb])
+    progs["mixed_widths"] = b.build()
+
+    b = program_cls("big_regfile")
+    x, y = b.vreg("x", big_lanes, 4), b.vreg("y", big_lanes, 4)
+    b.kmemld(x, b.mem_in("in_x", ints(big_lanes, np.int32)))
+    b.ksvmulsc(y, x, 3)
+    b.kaddv(y, y, x)
+    b.kdotp(y[0], x, y)
+    b.kmemstr(b.mem_out("y", big_lanes), y)
+    progs["big_regfile"] = b.build()
+    return progs
+
+
+def compile_walk(program):
+    """The program's compiled walk, as ``TorchBackend`` builds it (the
+    walk does not depend on the device)."""
+    from repro_torch.kvi.torch_backend import TorchBackend
+    return TorchBackend(device="cpu")._compile(program)
+
+
+def random_stack(rng, key: tuple, N: int, width: int, device):
+    """Random ``(N, width)`` contents for a walk buffer ``key``: full-range
+    integers, 0/1 for bool, floats within +-1e6."""
+    if key[0] != "in":
+        return random_ints(rng, (N, width), key[1], device)
+    dt = np.dtype(key[1])
+    if dt.kind == "b":
+        arr = rng.integers(0, 2, (N, width)).astype(dt)
+    elif dt.kind == "f":
+        arr = rng.uniform(-1e6, 1e6, (N, width)).astype(dt)
+    else:
+        info = np.iinfo(dt)
+        arr = rng.integers(info.min, info.max, (N, width), dtype=dt,
+                           endpoint=True)
+    return torch.from_numpy(arr).to(device)
+
+
+def check_walk(rng: np.random.Generator, walk, N: int, device, *,
+               smem_cap: int = kw.ARENA_SMEM_CAP,
+               threads: int = kw.THREADS,
+               max_grid: int = kw.MAX_GRID) -> "kw.WalkRecord":
+    """Pack ``walk``, run it over N instances of random input stacks
+    through :func:`kvi_walk.run_walk` and :func:`kvi_walk.run_walk_plain`
+    on the same tensors of ``device`` (store stacks from the same random
+    start), and raise unless every store stack is identical. Returns the
+    record."""
+    record = kw.pack_walk(walk, smem_cap=smem_cap, threads=threads)
+    inputs = [random_stack(rng, k, N, record.width(k), device)
+              for k in record.in_keys]
+    got = [random_stack(rng, k, N, record.width(k), device)
+           for k in record.st_keys]
+    want = [t.clone() for t in got]
+    if torch.device(device).type == "cuda":
+        kw.run_walk(record, inputs, got, N, max_grid=max_grid)
+    else:
+        kw.run_walk_plain(record, inputs, got, N)
+    kw.run_walk_plain(record, inputs, want, N)
+    for k, g, w in zip(record.st_keys, got, want):
+        _require_equal(f"kvi_walk store stack {k[1]}", g, w)
+    return record
 
 
 # ---------------------------------------------------------------------------

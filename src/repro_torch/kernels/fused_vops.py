@@ -101,11 +101,10 @@ class FusedRecord:
     threads: int = 256
 
 
-def pack_program(program: Sequence[SlotOp], in_slots: Sequence[int],
-                 out_slots: Sequence[int], n_slots: int,
-                 device: torch.device, threads: int = 256) -> FusedRecord:
+def program_words(program: Sequence[SlotOp], in_slots: Sequence[int],
+                  out_slots: Sequence[int], n_slots: int) -> List[int]:
     """Validate a slot program against the kernel's limits and pack it
-    into a :class:`FusedRecord` on ``device``."""
+    into the int64 words of :class:`FusedRecord` ``prog``."""
     if not 1 <= len(program) <= MAX_OPS:
         raise ValueError(f"slot program needs 1..{MAX_OPS} ops, "
                          f"got {len(program)}")
@@ -117,9 +116,6 @@ def pack_program(program: Sequence[SlotOp], in_slots: Sequence[int],
                          f"got {len(out_slots)}")
     if not 1 <= n_slots <= MAX_SLOTS:
         raise ValueError(f"slot file of {n_slots} exceeds {MAX_SLOTS}")
-    if threads % 32 or not 32 <= threads <= 1024:
-        raise ValueError(f"threads per block must be a multiple of 32 in "
-                         f"[32, 1024], got {threads}")
 
     def slot(s) -> int:
         if not 0 <= s < n_slots:
@@ -137,7 +133,18 @@ def pack_program(program: Sequence[SlotOp], in_slots: Sequence[int],
         s2 = NO_SLOT if s2 is None else slot(s2)
         words += [OPCODES[op] | slot(d) << 8 | slot(s1) << 16 | s2 << 24,
                   int(imm)]
-    words += [slot(s) for s in in_slots] + [slot(s) for s in out_slots]
+    return words + [slot(s) for s in in_slots] + [slot(s) for s in out_slots]
+
+
+def pack_program(program: Sequence[SlotOp], in_slots: Sequence[int],
+                 out_slots: Sequence[int], n_slots: int,
+                 device: torch.device, threads: int = 256) -> FusedRecord:
+    """Validate a slot program against the kernel's limits and pack it
+    into a :class:`FusedRecord` on ``device``."""
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"threads per block must be a multiple of 32 in "
+                         f"[32, 1024], got {threads}")
+    words = program_words(program, in_slots, out_slots, n_slots)
     prog = torch.tensor(words, dtype=torch.int64, device=device)
     return FusedRecord(prog, len(program), len(in_slots), len(out_slots),
                        n_slots, threads)

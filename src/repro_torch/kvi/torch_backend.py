@@ -1,19 +1,21 @@
 """TorchBackend — runs KVI workloads through the port's hand-written CUDA
 kernels (the port of ``repro/kvi/pallas_backend.py::PallasBackend``).
 
-Every planned :class:`~repro_torch.kvi.passes.fusion.FusedRegion` runs as
-ONE launch of the fused slot-program kernel
-(:func:`repro_torch.kernels.fused_vops.fused_vops`) and every reduction
-as ONE launch of the row-reduction kernel
-(:func:`repro_torch.kernels.kdotp.reduce_rows`), each over all N
-instances of a structure. On ``device="cpu"`` the same wrappers run
-their plain PyTorch versions.
+A structure's whole walk — every copy, planned
+:class:`~repro_torch.kvi.passes.fusion.FusedRegion` and reduction — runs
+as ONE launch of the walk kernel
+(:func:`repro_torch.kernels.kvi_walk.run_walk`) over all N instances of a
+batch: one block per instance, its register files (the Klessydra SPMs) in
+shared memory. On ``device="cpu"`` the walk's plain version
+(:func:`~repro_torch.kernels.kvi_walk.run_walk_plain`) interprets the
+same packed table step by step with the fused-region and reduction
+kernels' plain versions.
 
-Data stays on the device for the whole walk of a batch:
+Per batch, on the device:
 
-* a register file per element width: one ``(N, width)`` tensor with every
-  vreg at a fixed column offset, so a window is ``(column, length)`` in
-  one tensor and a kernel needs one base pointer and one row stride;
+* the register files: one ``(N, width)`` file per element width, every
+  vreg at a fixed column, so a window is ``(column, length)``; on the
+  card they live in the walk kernel's per-instance arena;
 * an input stack per host dtype: the ``mem_init`` buffers that some
   ``kmemld`` reads, concatenated on the host and copied to the device
   once per batch;
@@ -21,9 +23,8 @@ Data stays on the device for the whole walk of a batch:
   and stays on the device; the outputs come back in one device-to-host
   copy per width at the end.
 
-``kmemld``, ``kmemstr`` and ``kvcp`` are device copies between those
-tensors. The walk over a structure — tensor layout, steps and window
-descriptors — is compiled once per structural signature and reused.
+The walk over a structure — tensor layout, steps, window descriptors and
+its packed table — is compiled once per structural signature and reused.
 """
 from __future__ import annotations
 
@@ -35,9 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import kdotp as _kd
+from repro_torch.kernels import kvi_walk as _kw
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.fused_vops import (Windows, fused_vops,
-                                            pack_program)
+from repro_torch.kernels.fused_vops import Windows, program_words
 from repro_torch.kvi.backend import (BackendBase, BackendResult,
                                      register_backend)
 from repro_torch.kvi.ir import KviInstr, KviOp, KviProgram, ScalarBlock
@@ -57,9 +58,9 @@ _POST = {KviOp.KVRED: _kd.POST_NONE, KviOp.KDOTP: _kd.POST_NONE,
 
 @dataclass
 class KernelCache:
-    """Launch-record cache: slot-program structure -> its packed program
-    on the device (:class:`~repro_torch.kernels.fused_vops.FusedRecord`),
-    or a reduction's flush parameters. Keys are the reference's
+    """Launch-record cache: slot-program structure -> its packed slot
+    program (``fused_vops.program_words``), or a reduction's flush
+    parameters: one lookup per region and per reduction walked. Keys are the reference's
     (``pallas_backend.py``: program, slots, batch shape, block, dtype)
     with the device in place of the interpret flag, so a hit is exactly a
     reused record.
@@ -115,6 +116,7 @@ class _Walk:
 
     reg_width: Dict[torch.dtype, int]
     in_mems: Dict[np.dtype, List[int]]       # host dtype -> mem ids
+    in_width: Dict[np.dtype, int]            # host dtype -> their length
     st_width: Dict[torch.dtype, int]
     steps: List[tuple]
     # (name, mem id, (store dtype, column, length) or None: mem_init)
@@ -133,15 +135,23 @@ class TorchBackend(BackendBase):
     kernels' plain PyTorch versions (``device="cpu"``). There is no
     fallback from one to the other.
 
-    ``block`` is the CUDA block size of the fused kernel.
+    ``block`` is kept for the reference's launch keys (the walk kernel
+    picks its own block size, ``WalkRecord.threads``).
     ``max_fused_ops`` / ``max_fused_inputs`` bound one region's slot
     program; programs optimized by the default pipeline arrive with a
     :class:`FusionPlan` under the same bounds and run as planned.
-    ``fused_calls`` / ``reduce_calls`` count launches; a batch of N
-    instances issues as many as one instance. ``meta`` of a run holds
-    ``groups``, ``kernel_launches`` (the counterpart of the reference's
-    ``pallas_calls``), ``compile_cache`` (this call's hit/miss deltas) and
-    ``wall_s``."""
+
+    Counts: ``fused_calls`` / ``reduce_calls`` count the regions and
+    reductions walked, one each per batch of N instances — the
+    reference's ``pallas_calls``, on both devices; ``walk_calls`` counts
+    launches of the walk kernel, one per structural group on the card and
+    0 on the CPU. ``meta`` of a run holds ``groups``, ``kernel_launches``
+    (fused_calls + reduce_calls: the counterpart of the reference's
+    ``pallas_calls``), ``compile_cache`` (this call's hit/miss deltas,
+    one lookup per region and reduction) and ``wall_s``. ``host_s`` holds
+    the last run's host split, summed over its groups: ``stack_s`` (input
+    stacks to the device), ``walk_s`` (the walk, synchronized on the
+    card) and ``unpack_s`` (outputs back to the host)."""
 
     def __init__(self, device=None, block: int = 256,
                  max_fused_ops: int = MAX_FUSED_OPS,
@@ -164,7 +174,9 @@ class TorchBackend(BackendBase):
             else KernelCache()
         self.fused_calls = 0
         self.reduce_calls = 0
-        self._walks: Dict[tuple, _Walk] = {}
+        self.walk_calls = 0
+        self.host_s: Dict[str, float] = {}
+        self._walks: Dict[tuple, Tuple[_Walk, _kw.WalkRecord]] = {}
 
     # -- fusion plan -------------------------------------------------------
     def _plan(self, program: KviProgram) -> FusionPlan:
@@ -260,7 +272,8 @@ class TorchBackend(BackendBase):
             outputs.append((m.name, m.id, (loc[0][1], loc[1], loc[2])
                             if loc is not None and loc[0][0] == "st"
                             else None))
-        return _Walk(reg_width, in_mems, st_width, steps, outputs)
+        return _Walk(reg_width, in_mems, in_width, st_width, steps,
+                     outputs)
 
     def _region_step(self, region: FusedRegion, window) -> tuple:
         reg = ("reg", TORCH_DTYPE[region.elem_bytes])
@@ -281,40 +294,39 @@ class TorchBackend(BackendBase):
     def _run_batch(self, sig: tuple, programs: Sequence[KviProgram]
                    ) -> List[Dict[str, np.ndarray]]:
         """Execute N structurally identical programs (different data) in
-        one batched walk on the device."""
+        one batched walk: one launch on the card."""
         proto = programs[0]
         N = len(programs)
-        walk = self._walks.get(sig)
-        if walk is None:
-            walk = self._walks[sig] = self._compile(proto)
+        compiled = self._walks.get(sig)
+        if compiled is None:
+            walk = self._compile(proto)
+            compiled = self._walks[sig] = (walk, _kw.pack_walk(walk))
+        walk, record = compiled
         dev = self.device
-        T: Dict[_TKey, torch.Tensor] = {}
-        for dt, width in walk.reg_width.items():
-            T[("reg", dt)] = torch.zeros((N, width), dtype=dt, device=dev)
-        for hdt, mids in walk.in_mems.items():
+        t0 = time.perf_counter()
+        inputs = []
+        for (_, hdt), mids in zip(record.in_keys, walk.in_mems.values()):
+            pad = np.zeros(record.width(("in", hdt)) - walk.in_width[hdt],
+                           hdt)
             host = np.concatenate(
-                [np.asarray(p.mem_init[mid]).reshape(-1)
-                 for p in programs for mid in mids],
-                dtype=hdt, casting="unsafe").reshape(N, -1)
-            T[("in", hdt)] = torch.from_numpy(host).to(dev)
-        for dt, width in walk.st_width.items():
-            T[("st", dt)] = torch.empty((N, width), dtype=dt, device=dev)
+                [a for p in programs for a in
+                 [np.asarray(p.mem_init[mid]).reshape(-1) for mid in mids]
+                 + [pad]], dtype=hdt, casting="unsafe").reshape(N, -1)
+            inputs.append(torch.from_numpy(host).to(dev))
+        stores = [torch.empty((N, record.width(k)), dtype=k[1], device=dev)
+                  for k in record.st_keys]
+        t1 = time.perf_counter()
+        self._lookups(walk, N)
+        if dev.type == "cuda":
+            _kw.run_walk(record, inputs, stores, N)
+            self.walk_calls += 1
+            torch.cuda.synchronize(dev)
+        else:
+            _kw.run_walk_plain(record, inputs, stores, N)
+        t2 = time.perf_counter()
 
-        for step in walk.steps:
-            kind = step[0]
-            if kind == "copy":
-                _, dkey, dcol, skey, scol, n, overlap = step
-                src = T[skey][:, scol:scol + n]
-                T[dkey][:, dcol:dcol + n].copy_(src.clone() if overlap
-                                                else src)
-            elif kind == "fused":
-                self._run_region(step, T, N)
-            else:
-                self._reduce(step, T, N)
-
-        host_st = {dt: T[("st", dt)].cpu().numpy()     # one D2H per width
-                   for dt in {loc[0] for _, _, loc in walk.outputs
-                              if loc is not None}}
+        host_st = {k[1]: t.cpu().numpy()               # one D2H per width
+                   for k, t in zip(record.st_keys, stores)}
         results = []
         for b, p in enumerate(programs):
             outs = {}
@@ -328,42 +340,44 @@ class TorchBackend(BackendBase):
                     outs[name] = host_st[dt][b, col:col + n].reshape(
                         shape).copy()
             results.append(outs)
+        for key, dt in (("stack_s", t1 - t0), ("walk_s", t2 - t1),
+                        ("unpack_s", time.perf_counter() - t2)):
+            self.host_s[key] = self.host_s.get(key, 0.0) + dt
         return results
 
-    def _run_region(self, step: tuple, T, N: int) -> None:
-        """One planned region = ONE fused kernel launch over the batch."""
-        _, region, reg, win = step
-        in_slots = tuple(s for _, s in region.inputs)
-        out_slots = tuple(s for _, s in region.outputs)
-        key = ("fused", region.ops, in_slots, out_slots, region.n_slots, N,
-               region.length, self.block, str(reg[1]), str(self.device))
-        record = self.kernel_cache.get(key, lambda: pack_program(
-            region.ops, in_slots, out_slots, region.n_slots, self.device,
-            self.block))
-        fused_vops(record, win, T[reg], T[reg])
-        self.fused_calls += 1
-
-    def _reduce(self, step: tuple, T, N: int) -> None:
-        """One reduction = ONE kernel launch over the batch, flushed into
-        the dst element with the register file's width (so it wraps)."""
-        _, op, scalar, post, n, akey, acol, bcol, dkey, dcol = step
-        self.kernel_cache.get(("red", op, scalar, N, n, str(akey[1]),
-                               str(self.device)), lambda: (post, scalar))
-        a = T[akey]
-        _kd.reduce_rows(T[dkey][:, dcol], a[:, acol:acol + n],
-                        None if bcol is None else a[:, bcol:bcol + n],
-                        post=post, scalar=scalar, mode=_kd.ORACLE)
-        self.reduce_calls += 1
+    def _lookups(self, walk: _Walk, N: int) -> None:
+        """One launch-record lookup per region and per reduction walked,
+        under the reference's keys (``pallas_backend.py``), and the counts
+        of both."""
+        for step in walk.steps:
+            if step[0] == "fused":
+                _, region, reg, _ = step
+                in_slots = tuple(s for _, s in region.inputs)
+                out_slots = tuple(s for _, s in region.outputs)
+                key = ("fused", region.ops, in_slots, out_slots,
+                       region.n_slots, N, region.length, self.block,
+                       str(reg[1]), str(self.device))
+                self.kernel_cache.get(key, lambda r=region, i=in_slots,
+                                      o=out_slots: program_words(
+                                          r.ops, i, o, r.n_slots))
+                self.fused_calls += 1
+            elif step[0] == "reduce":
+                _, op, scalar, post, n, akey, _, _, _, _ = step
+                self.kernel_cache.get(("red", op, scalar, N, n,
+                                       str(akey[1]), str(self.device)),
+                                      lambda p=post, s=scalar: (p, s))
+                self.reduce_calls += 1
 
     def run_workload(self, workload: KviWorkload,
                      verify: Optional[bool] = None) -> WorkloadResult:
         """Group entries by program structure; each group runs as one
-        batched walk (one launch per fused region and per reduction for
-        the whole group). Hart assignments carry no timing meaning here:
+        batched walk (one walk-kernel launch for the whole group on the
+        card). Hart assignments carry no timing meaning here:
         the batch is the hart-level parallelism."""
         t0 = time.perf_counter()
         workload = self.optimize_workload(workload, verify=verify)
         calls_before = self.fused_calls + self.reduce_calls
+        self.host_s = {}
         cc_before = (self.kernel_cache.hits, self.kernel_cache.misses)
         groups = _group(workload.entries)
         entry_outputs: List[Optional[Dict[str, np.ndarray]]] = \

@@ -1,7 +1,8 @@
 """Card tests: each CUDA kernel against its plain PyTorch version on the
 same CUDA tensors, at the main path's shapes (and, for the compute
-kernels, at odd shapes and one card-scale shape each), and the backend on
-the card against the backend on the CPU. Marked ``cuda``; they skip with a reason
+kernels, at odd shapes and one card-scale shape each; for the KVI walk
+kernel, its edge programs, random programs and both arena layouts), and
+the backend on the card against the backend on the CPU. Marked ``cuda``; they skip with a reason
 where no card (or no nvcc) is present — decided in a fixture, never at
 import, so every worker collects the same tests. Run them on the card:
 
@@ -15,6 +16,7 @@ import repro_torch.kvi as tk
 from repro_torch.kernels import checks
 from repro_torch.kernels import fused_vops as fv
 from repro_torch.kernels import kdotp as kd
+from repro_torch.kernels import kvi_walk as kw
 from repro_torch.kernels import micro
 from repro_torch.kernels.build import nvcc_path
 from repro_torch.kvi.programs import conv2d_program, fft_program
@@ -89,6 +91,10 @@ def test_overflowing_kdotpps_on_the_card(card):
 
 
 def test_backend_on_the_card_equals_cpu(card):
+    """The KVI path on the card is one walk-kernel launch per structural
+    group and no per-step launch; ``kernel_launches`` still counts the
+    regions and reductions (the reference's ``pallas_calls``), as the
+    CPU run does."""
     rng = np.random.default_rng(5)
     protos = [tk.optimize_program(conv2d_program(
         rng.integers(-99, 99, (16, 16)), rng.integers(-5, 5, (3, 3)),
@@ -98,15 +104,112 @@ def test_backend_on_the_card_equals_cpu(card):
                                  for k, v in p.mem_init.items()})
              for p in protos for _ in range(8)]
     wl = tk.KviWorkload("mix", tuple(tk.WorkloadEntry(p) for p in progs))
-    f0, r0 = fv.launch_count, kd.launch_count
-    got = TorchBackend(passes=()).run_workload(wl)
-    assert fv.launch_count > f0
+    f0, r0, w0 = fv.launch_count, kd.launch_count, kw.launch_count
+    be = TorchBackend(passes=())
+    got = be.run_workload(wl)
+    assert kw.launch_count - w0 == be.walk_calls == got.meta["groups"] == 2
+    assert (fv.launch_count, kd.launch_count) == (f0, r0)
     want = TorchBackend(device="cpu", passes=()).run_workload(wl)
-    assert got.kernel_launches == want.kernel_launches \
-        == fv.launch_count - f0 + kd.launch_count - r0
+    assert got.kernel_launches == want.kernel_launches > 0
     for g, w in zip(got.entry_results, want.entry_results):
         for name, arr in w.outputs.items():
             np.testing.assert_array_equal(g.outputs[name], arr)
+
+
+def _walk_cases():
+    """(id, program maker, N, check_walk options) of the walk-kernel card
+    tests: every edge program, random programs at eb 1/2/4, the hazard
+    and a random program in the global layout, rows striding over a
+    small grid."""
+    edges = checks.walk_edge_programs(tk.KviProgramBuilder,
+                                      np.random.default_rng(0))
+    cases = [(name, prog, 33, {}) for name, prog in edges.items()]
+    cases.append(("hazard-global", edges["hazard"], 33, dict(smem_cap=0)))
+    for eb in (1, 2, 4):
+        prog = checks.random_kvi_program(tk.KviProgramBuilder,
+                                         np.random.default_rng(eb), eb)
+        cases.append((f"random-eb{eb}", prog, 37, {}))
+        cases.append((f"random-eb{eb}-global-grid5", prog, 37,
+                       dict(smem_cap=0, max_grid=5)))
+    return cases
+
+
+WALK_CASES = _walk_cases()
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=lambda c: c[0])
+def test_walk_kernel_equals_plain(card, case):
+    """The walk kernel against ``run_walk_plain`` on the same tensors:
+    every store stack bit for bit, one launch."""
+    name, prog, N, opts = case
+    before = kw.launch_count
+    record = checks.check_walk(np.random.default_rng(9),
+                               checks.compile_walk(prog), N, card, **opts)
+    torch.cuda.synchronize()
+    assert kw.launch_count == before + 1
+    want = "global" if "global" in name or name == "big_regfile" \
+        else "shared"
+    assert record.layout == want
+
+
+def test_walk_kernel_on_the_main_path_structures(card):
+    """conv32 F 3 / 11, FFT-256, matmul64 (kdotp, kdotpps) and
+    pipeline_demo at a batch of 40, in the shared layout and in the
+    global one."""
+    from repro_torch.kvi.programs import (matmul_program,
+                                          pipeline_demo_program)
+    rng = np.random.default_rng(10)
+    protos = [conv2d_program(rng.integers(-99, 99, (32, 32)),
+                             rng.integers(-9, 9, (f, f)), shift=4)
+              for f in (3, 11)]
+    protos.append(fft_program(rng.integers(-99, 99, 256),
+                              rng.integers(-99, 99, 256)))
+    protos += [matmul_program(rng.integers(-99, 99, (64, 64)),
+                              rng.integers(-99, 99, (64, 64)), shift=s,
+                              resident=False) for s in (0, 8)]
+    protos.append(pipeline_demo_program(rng.integers(-99, 99, 1024)))
+    before = kw.launch_count
+    for proto in protos:
+        walk = checks.compile_walk(tk.optimize_program(proto))
+        for cap in (kw.ARENA_SMEM_CAP, 0):
+            checks.check_walk(rng, walk, 40, card, smem_cap=cap)
+    torch.cuda.synchronize()
+    assert kw.launch_count == before + 2 * len(protos)
+
+
+def test_walk_launch_errors_raise(card):
+    """A launch the walk kernel refuses returns the CUDA error, and the
+    wrapper raises with it; nothing falls back to the plain walk."""
+    prog = checks.walk_edge_programs(tk.KviProgramBuilder,
+                                     np.random.default_rng(1),
+                                     big_lanes=60000)["big_regfile"]
+    walk = checks.compile_walk(prog)
+    lib = kw._library()
+    for cap in (kw.ARENA_SMEM_CAP, 1 << 20):
+        record = kw.pack_walk(walk, smem_cap=cap)
+        assert lib.kvi_walk_smem_bytes(
+            record.arena_bytes, int(record.layout == "shared"), record.ring,
+            record.slot_bytes) == record.smem_bytes
+    # a 480 KB register file forced into shared memory: past 227 KB
+    assert record.layout == "shared" and record.smem_bytes > kw.MAX_SMEM
+    ins = [torch.zeros((2, record.width(k)), dtype=torch.int32, device=card)
+           for k in record.in_keys]
+    sts = [torch.zeros((2, record.width(k)), dtype=torch.int32, device=card)
+           for k in record.st_keys]
+    before = kw.launch_count
+    with pytest.raises(RuntimeError, match="kvi_walk kernel launch failed"):
+        kw.run_walk(record, ins, sts, 2)
+    assert kw.launch_count == before
+    stream = torch.cuda.current_stream().cuda_stream
+    table, pool = record.on(card)
+    desc = np.zeros((1, 2), np.int64)
+    ptrs = np.zeros(1, np.int64)
+    # 48 threads (not a warp multiple), then no buffer
+    for threads, n_buf in ((48, 1), (64, 0)):
+        assert lib.kvi_walk_launch(
+            table.data_ptr(), record.n_steps, pool.data_ptr(), 0, 0,
+            desc.ctypes.data, ptrs.ctypes.data, n_buf, 16, 1, 0, None, 0, 0,
+            1, 1, threads, kw.smem_bytes(16, True, 0, 0), stream) != 0
 
 
 @pytest.mark.parametrize("case", checks.compute_kernel_cases(),
