@@ -7,7 +7,9 @@ Needs one CUDA card, ``nvcc`` and this checkout (``src/repro_torch``);
 imports nothing of JAX or of the reference package ``repro``. Phases:
 
 1. build   — compile the nine CUDA sources of ``src/repro_torch/csrc/``
-   for sm_90a, one ``nvcc`` per source, in parallel;
+   for sm_90a, one ``nvcc`` per source, in parallel; print each kernel's
+   registers and spills, and the conv2d kernel's rows a thread, threads,
+   tiles and dynamic shared memory a block at each phase-4 workload;
 2. check   — each kernel against its plain PyTorch version on the same
    CUDA tensors: the KVI walk kernel (``kvi_walk``) against
    ``run_walk_plain`` bit for bit on every main-path structure, on
@@ -16,7 +18,10 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    narrow reduction dsts) and in both arena layouts (a register file
    above the shared-memory cap); slice 1's per-step kernels at the KVI
    path's shapes, bit for bit; the
-   four compute kernels, flash attention and the SSD scan at odd shapes
+   four compute kernels (conv2d bit for bit in every image dtype: int32
+   at shifts 0 / 4 / 31 / 35 / 40, float32, bf16, float16, int8, int16,
+   uint8, sums that wrap or saturate; F up to 1024), flash attention and
+   the SSD scan at odd shapes
    (no dimension a multiple of a tile; one matmul of whole tiles),
    integers bit for bit, floats within error bounds, with the per-path
    launch counters showing the bf16 / int8 products and bf16 attention
@@ -40,7 +45,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    calls), one ``fused_vops`` / ``kdotp`` launch each;
 4. slice 2 — the paper's compute kernels at card scale through the
    intrinsics layer ``repro_torch.kernels.ops`` (matmul bf16 / int8 /
-   f32, conv2d int32 F = 3 and 11 and f32, FFT 16384 x 256 and
+   f32, conv2d int32 F = 3, 11 and 161, f32 F = 3 and 11, bf16 and int8
+   F = 3, FFT 16384 x 256 and
    4096 x 1024, the het-MIMD composite at the paper's size and at 1024,
    and the 1024 composite's three parts alone),
    each output held against its plain version on the same tensors and
@@ -505,15 +511,17 @@ def _within(name, got, want, tol) -> float:
     return float(err.max()) if err.size else 0.0
 
 
-def _np_correlate(padded, filt):
-    """Valid correlation in float64, or exact in int64 for integers."""
+def _np_correlate(padded, filt, rows=None):
+    """Valid correlation in float64, or exact in int64 for integers; of
+    the output ``rows`` only, where given."""
     F = filt.shape[0]
     H, W = padded.shape[0] - F + 1, padded.shape[1] - F + 1
-    wide = np.int64 if padded.dtype.kind == "i" else np.float64
-    acc = np.zeros((H, W), wide)
+    rows = np.arange(H) if rows is None else rows
+    wide = np.int64 if padded.dtype.kind in "iu" else np.float64
+    acc = np.zeros((len(rows), W), wide)
     for fr in range(F):
         for fc in range(F):
-            acc += padded[fr:fr + H, fc:fc + W].astype(wide) \
+            acc += padded[rows + fr, fc:fc + W].astype(wide) \
                 * wide(filt[fr, fc])
     return acc
 
@@ -545,22 +553,42 @@ def _formula_matmul(name, got, a, b, bf16_out):
     return _within(name, got[rows], want, tol)
 
 
-def _formula_conv(name, got, img, filt, shift, pad):
+def _formula_conv(name, got, img, filt, shift, pad, limit=1 << 30):
     """int32: the int64 sum wrapped to int32, then shifted, exactly;
-    floats: the float64 sum within gamma(F^2) of the absolute terms."""
+    int8 / int16 / uint8: the int64 sum saturated to the dtype, exactly
+    where every float32 partial sum is exact (sum of |terms| below 2^24),
+    else within gamma(F^2) of the absolute terms plus 1 (the truncation);
+    floats: the float64 sum within gamma(F^2) of the absolute terms, plus
+    a bf16 step for a bf16 output. Past ``limit`` multiply-adds only the
+    first and last ``FORMULA_ROWS`` output rows are formed."""
     from repro_torch.kernels.checks import gamma
+    bf16 = str(got.dtype).endswith("bfloat16")
     img, filt, got = _np(img), _np(filt), _np(got)
     F = filt.shape[0]
     lo = F // 2 if pad else 0
     hi = F - 1 - F // 2 if pad else 0
     padded = np.pad(img, ((lo, hi), (lo, hi)))
-    acc = _np_correlate(padded, filt)
+    H = padded.shape[0] - F + 1
+    rows = None
+    if F * F * got.size > limit:
+        rows = np.unique(np.r_[0:min(FORMULA_ROWS, H),
+                               max(0, H - FORMULA_ROWS):H])
+        got = got[rows]
+    acc = _np_correlate(padded, filt, rows)
     if img.dtype == np.int32:
         want = acc.astype(np.int32) >> (shift if 0 <= shift <= 31 else 31)
         if not np.array_equal(got, want):
             raise AssertionError(f"{name}: differs from the int64 sum")
         return 0.0
-    tol = gamma(F * F) * _np_correlate(np.abs(padded), np.abs(filt))
+    terms = _np_correlate(np.abs(padded.astype(np.float64)),
+                          np.abs(filt.astype(np.float64)), rows)
+    if img.dtype.kind in "iu":
+        info = np.iinfo(img.dtype)
+        tol = np.where(terms < 2.0 ** 24, 0.0, gamma(F * F) * terms + 1)
+        return _within(name, got, np.clip(acc, info.min, info.max), tol)
+    tol = gamma(F * F) * terms
+    if bf16:
+        tol = tol + 2.0 ** -7 * np.abs(acc)
     return _within(name, got, acc, tol)
 
 
@@ -868,6 +896,26 @@ def time_kdotp(rng, device):
                 shape=f"matmul64 kdotp: N={N} rows, n={n}, int32")
 
 
+def conv_blocks(device):
+    """Rows a thread, threads a block, tiles and dynamic shared memory a
+    block (bytes) of each ``spm_conv2d`` workload of phase 4, as the
+    wrapper launches them."""
+    from repro_torch.kernels import micro
+    from repro_torch.kernels import spm_conv2d as sc
+    sms = sc.sm_count(device)
+    out = {}
+    for w in micro.CARD:
+        if w.kernel == "spm_conv2d":
+            H, W, F = w.shape["H"], w.shape["W"], w.shape["F"]
+            rows = sc.rows_per_thread(H, W, sms)
+            tx = sc.block_threads(H, W, rows, sms)
+            out[w.name] = dict(rows=rows, threads=tx,
+                               tiles=sc.tiles(H, W, tx, rows),
+                               smem_bytes=sc.smem_bytes(
+                                   micro.DTYPES[w.shape["dtype"]], F, tx))
+    return out
+
+
 def _bound(t):
     """Slice 1's kernels run 32-bit integer operations."""
     from repro_torch.kernels.micro import bound
@@ -924,6 +972,7 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    print(f"[build] spm_conv2d blocks: {json.dumps(conv_blocks(device))}")
 
     stamp("build")
 

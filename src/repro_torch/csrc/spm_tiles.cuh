@@ -1,8 +1,9 @@
 // Device tile routines of the paper's compute kernels, shared by
-// spm_matmul.cu (its float32 kernel), spm_conv2d.cu, spm_fft.cu and
-// het_mimd.cu: each standalone kernel runs one routine per block, and the
-// het-MIMD kernel runs all three in ONE launch, the block index picking
-// the routine.
+// spm_matmul.cu (its float32 kernel), spm_fft.cu and het_mimd.cu: each
+// standalone kernel runs one routine per block, and the het-MIMD kernel
+// runs all three in ONE launch, the block index picking the routine
+// (conv_tile serves het_mimd.cu's conv hart only; the standalone conv2d
+// has its own kernel, spm_conv2d.cu).
 //
 // Every routine is written for a 1-D block of kThreads threads, takes
 // the index of the tile it computes (so a caller maps blockIdx.x onto
@@ -275,9 +276,8 @@ __device__ void matmul_tile(const float* __restrict__ a, const float* __restrict
 //
 // out[r][c] = sum_{fr, fc} in(r + fr - pad_top, c + fc - pad_left) * filt[fr][fc],
 // in() reading 0 outside [0, H_in) x [0, W_in), taps in (fr, fc) order.
-// The same-size convolution passes the unpadded image and pad_top =
-// F / 2 (the padding is an index test, not a padded copy); the het-MIMD
-// branch passes its pre-padded image and pad 0 (a valid correlation).
+// The het-MIMD branch passes its pre-padded image and pad 0 (a valid
+// correlation); a nonzero pad makes the padding an index test.
 // A 32 x 32 output tile per block: its (32 + F - 1)^2 input window and
 // the filter are staged in shared memory; each thread computes 4 rows of
 // one column (rows ty + 8 i), so a warp reads 32 consecutive words.

@@ -13,15 +13,16 @@ version on the same inputs.
 Float tolerances are error bounds, not fitted numbers. A float32 sum of
 k terms lies within ``gamma(k) * sum(|terms|)`` of the exact sum
 (``gamma(k) = k u / (1 - k u)``, u = 2^-24), whatever the order, so two
-sums in different orders lie within twice that; conv2d (k = F^2) is held
-to it. For a matmul that worst case grows as K u and would pass a TF32
+sums in different orders lie within twice that; the composite's conv
+hart (k = F^2) is held to it. For a matmul that worst case grows as K u and would pass a TF32
 product at K in the thousands, so products are held to a probabilistic
 bound instead (:func:`dot_tolerance`). A bf16 output adds up to one bf16
 step (2^-7 relative) between two roundings. An FFT stage adds at most
 ~4 u times the row's L1 norm (which bounds every intermediate), so
 log2(n) stages in two implementations stay within ``8 log2(n) u L1``.
 conv2d and the FFT round every operation as their plain versions do, so
-on the card they are expected to agree exactly; the bound is what is
+on the card they are expected to agree exactly: ``spm_conv2d`` is held to
+that, in every dtype; for the FFT and the composite the bound is what is
 enforced, and the returned maximum shows the rest.
 
 Attention and the SSD scan are held to a worst-case bound relative to
@@ -567,12 +568,28 @@ def check_int8_wrap(device) -> int:
 
 def conv_operands(rng, H, W, F, dtype, device):
     """int32: |img| < 2^20, |filt| < 2^10, so sums overflow int32 from
-    F = 3 on; floats: standard normal."""
+    F = 3 on; int8 / int16 / uint8: the dtype's whole range and a filter
+    in [-3, 4) of the same dtype (uint8 wraps -3..-1 to 253..255), so
+    most sums leave the range and saturate; float16: |img|, |filt| ~ 100,
+    so sums pass 65504 (inf); float32 and bf16: standard normal, a
+    float32 filter."""
     if dtype == torch.int32:
         img = rng.integers(-(1 << 20), 1 << 20, (H, W))
         filt = rng.integers(-(1 << 10), 1 << 10, (F, F))
         return (torch.from_numpy(img.astype(np.int32)).to(device),
                 torch.from_numpy(filt.astype(np.int32)).to(device))
+    if dtype == torch.float16:
+        return (torch.from_numpy(rng.normal(0, 100, (H, W)).astype(
+                    np.float16)).to(device),
+                torch.from_numpy(rng.normal(0, 100, (F, F)).astype(
+                    np.float16)).to(device))
+    if not dtype.is_floating_point:
+        info = torch.iinfo(dtype)
+        np_dt = np.dtype(str(dtype).split(".")[1])
+        img = rng.integers(info.min, info.max + 1, (H, W)).astype(np_dt)
+        filt = rng.integers(-3, 4, (F, F)).astype(np_dt)
+        return (torch.from_numpy(img).to(device),
+                torch.from_numpy(filt).to(device))
     return (random_floats(rng, (H, W), dtype, device),
             random_floats(rng, (F, F), torch.float32, device))
 
@@ -587,18 +604,15 @@ def _conv_tolerance(padded, filt, want) -> torch.Tensor:
 
 
 def compare_conv(got, img, filt, shift=0) -> float:
-    """``got`` (an ``spm_conv2d`` output) against the plain version:
-    int32 bit for bit; floats within ``2 gamma(F^2)`` of the sum of
-    absolute terms (plus one bf16 step for bf16)."""
+    """``got`` (an ``spm_conv2d`` output) against the plain version, bit
+    for bit in every dtype: the kernel rounds each product and each sum
+    of a float image as the plain version does, in the same order, and
+    casts back the same way."""
     want = sc.spm_conv2d_plain(img, filt, shift=shift)
-    if img.dtype == torch.int32:
-        return _require_equal("spm_conv2d", got, want)
-    F = filt.shape[0]
-    pad = F // 2
-    padded = torch.nn.functional.pad(img, (pad, F - 1 - pad, pad,
-                                           F - 1 - pad))
-    return require_close("spm_conv2d", got, want,
-                         _conv_tolerance(padded, filt, want))
+    if got.dtype != want.dtype:
+        raise AssertionError(f"spm_conv2d: got {got.dtype}, want "
+                             f"{want.dtype}")
+    return _require_equal("spm_conv2d", got, want)
 
 
 def check_conv(rng, H, W, F, dtype, device, shift=0) -> float:
@@ -890,7 +904,9 @@ def check_ssd_parts(rng, Bz, S, H, P, N, chunk, device,
 MATMUL_TYPES = ((torch.float32, None), (torch.bfloat16, None),
                 (torch.bfloat16, torch.float32), (torch.int8, None))
 CONV_TYPES = ((torch.int32, 0), (torch.int32, 4), (torch.int32, 31),
-              (torch.int32, 40), (torch.float32, 0), (torch.bfloat16, 0))
+              (torch.int32, 35), (torch.int32, 40), (torch.float32, 0),
+              (torch.bfloat16, 0), (torch.float16, 3), (torch.int8, 3),
+              (torch.int16, 3), (torch.uint8, 3))
 #: q / x dtypes every attention and SSD case runs in
 LM_TYPES = (torch.float32, torch.bfloat16)
 
@@ -911,6 +927,16 @@ def compute_kernel_cases() -> Sequence[Tuple[str, dict]]:
         ("spm_conv2d", dict(H=64, W=48, F=5)),
         ("spm_conv2d", dict(H=17, W=45, F=4)),
         ("spm_conv2d", dict(H=5, W=7, F=11)),
+        # a 1 x 1 image; 16-byte rows of every dtype (W 64); tiles past a
+        # block's first (the ring running on into the next tile), with
+        # and without 16-byte rows; F above the old kernel's limit of 154
+        # and F = 1024, on images smaller than the filter
+        ("spm_conv2d", dict(H=1, W=1, F=3)),
+        ("spm_conv2d", dict(H=19, W=64, F=3)),
+        ("spm_conv2d", dict(H=3001, W=2048, F=5)),
+        ("spm_conv2d", dict(H=4099, W=2050, F=3)),
+        ("spm_conv2d", dict(H=24, W=20, F=161)),
+        ("spm_conv2d", dict(H=9, W=13, F=1024)),
         ("spm_fft", dict(B=3, n=64)),
         ("spm_fft", dict(B=4, n=2)),
         ("spm_fft", dict(B=2, n=1)),

@@ -30,8 +30,22 @@ from repro_torch.kernels.spm_conv2d import check_filter, correlate_plain
 from repro_torch.kernels.spm_fft import check_planes, pass_plan, sm_count, \
     spm_fft_plain, twiddles
 
+TILE = 32                          # conv tile edge (csrc/spm_tiles.cuh)
+SMEM_LIMIT = 232_448               # bytes of shared memory a block may use
+
 #: kernel launches so far (the CUDA path only)
 launch_count = 0
+
+
+def check_tile_filter(filt: torch.Tensor, img: torch.Tensor) -> int:
+    """:func:`check_filter`, and the conv hart's shared-memory test: its
+    ``conv_tile`` stages a ``(TILE + F - 1)^2`` window and the F x F
+    filter a block. Returns F."""
+    F = check_filter(filt, img)
+    if ((TILE + F - 1) ** 2 + F * F) * 4 > SMEM_LIMIT:
+        raise ValueError(f"het_mimd: a {F} x {F} filter needs more shared "
+                         f"memory than a block has")
+    return F
 
 
 def _f32(*ts: torch.Tensor):
@@ -40,7 +54,7 @@ def _f32(*ts: torch.Tensor):
 
 def _check(img, filt, fft_re, fft_im, A, B) -> Tuple[int, int]:
     """Validate the six operands; returns ``(F, log2(n))``."""
-    F = check_filter(filt, img)
+    F = check_tile_filter(filt, img)
     if img.shape[0] < F or img.shape[1] < F:
         raise ValueError(f"het_mimd: the pre-padded image "
                          f"{tuple(img.shape)} is smaller than the filter")

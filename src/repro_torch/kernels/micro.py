@@ -3,7 +3,8 @@ matmul / conv2d / FFT / attention / SSD rows of the reference's
 ``benchmarks/kernel_micro.py`` and of the het-MIMD stage of
 ``examples/composite_workload.py``.
 
-    python -m repro_torch.kernels.micro [--seed 0]
+    python -m repro_torch.kernels.micro [--seed 0] [--only conv,composite]
+                                        [--kernel-only]
 
 Runs on the card only: without one it exits 2 and prints no result. For
 each workload — the reference's shapes (``REFERENCE``) and the
@@ -53,7 +54,8 @@ PEAK_OPS_PER_S = {
     "int32": 33.5e12,      # INT32 outside the tensor cores
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "int8": torch.int8, "int32": torch.int32}
+          "float16": torch.float16, "int8": torch.int8, "int16": torch.int16,
+          "uint8": torch.uint8, "int32": torch.int32}
 MODULES = {"spm_matmul": sm, "spm_conv2d": sc, "spm_fft": sf,
            "het_mimd": hm, "flash_attention": fa, "ssd_scan": ss}
 
@@ -108,6 +110,18 @@ CARD = (
     Workload("conv_f32_2048_f3", "spm_conv2d",
              dict(H=2048, W=2048, F=3, dtype="float32"),
              "float image filtering"),
+    Workload("conv_f32_2048_f11", "spm_conv2d",
+             dict(H=2048, W=2048, F=11, dtype="float32"),
+             "float image filtering, 11x11 filter"),
+    Workload("conv_bf16_2048_f3", "spm_conv2d",
+             dict(H=2048, W=2048, F=3, dtype="bfloat16"),
+             "half-width float image filtering"),
+    Workload("conv_int8_2048_f3", "spm_conv2d",
+             dict(H=2048, W=2048, F=3, dtype="int8"),
+             "8-bit image filtering, saturating (the reference's int8)"),
+    Workload("conv_int32_512_f161", "spm_conv2d",
+             dict(H=512, W=512, F=161, dtype="int32", shift=4),
+             "a filter past the old kernel's shared-memory limit (154)"),
     Workload("fft_16384x256", "spm_fft", dict(B=16384, n=256),
              "batched FFT-256 (the paper's size)"),
     Workload("fft_4096x1024", "spm_fft", dict(B=4096, n=1024),
@@ -285,9 +299,9 @@ def attention_library_call(q, k, v, causal, window, q_offset):
 
 def library_call(w: Workload, x: dict) -> Optional[Callable[[], object]]:
     """One PyTorch call computing the workload's function (three for the
-    composite, one per hart), or None where PyTorch has none: an int32
-    convolution, an int8 product outside ``torch._int_mm``'s shapes, the
-    SSD scan."""
+    composite, one per hart), or None where PyTorch has none: an integer
+    convolution (a bf16 one takes the filter rounded to bf16), an int8
+    product outside ``torch._int_mm``'s shapes, the SSD scan."""
     if w.kernel == "spm_matmul":
         a, b = x["a"], x["b"]
         if a.dtype != torch.int8:
@@ -299,9 +313,9 @@ def library_call(w: Workload, x: dict) -> Optional[Callable[[], object]]:
     if w.kernel == "spm_conv2d":
         img, filt = x["img"], x["filt"]
         F = filt.shape[0]
-        if img.dtype != torch.float32 or F % 2 == 0:
+        if img.dtype not in (torch.float32, torch.bfloat16) or F % 2 == 0:
             return None
-        i4, f4 = img[None, None], filt[None, None]
+        i4, f4 = img[None, None], filt.to(img.dtype)[None, None]
         return lambda: tnf.conv2d(i4, f4, padding=F // 2)
     if w.kernel == "spm_fft":
         z = torch.complex(x["re"], x["im"])
@@ -579,11 +593,29 @@ def time_workload(w: Workload, x: dict) -> dict:
     return dict(t, **bound(*cost(w)))
 
 
+def time_kernel(w: Workload, x: dict) -> dict:
+    """The kernel's device and call times alone, beside its bound; the
+    launch counters restored afterwards."""
+    saved = save_counts()
+    kern = lambda: run_kernel(w, x)                         # noqa: E731
+    k = timed(kern, reps_for(kern), device_names(w.kernel))
+    restore_counts(saved)
+    return dict(ms=k["device_ms"] or k["call_ms"],
+                ms_source="profiler" if k["device_ms"] else "events",
+                call_ms=k["call_ms"], **bound(*cost(w)))
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="comma-separated parts of workload names to run "
+                         "(default: every workload)")
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="time the kernel alone (no plain version, no "
+                         "library call)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("micro: no CUDA device available; the microbenchmarks run on "
@@ -593,11 +625,15 @@ def main(argv=None) -> int:
     card_settings()
     card = card_line()
     rng = np.random.default_rng(args.seed)
+    parts = [p for p in args.only.split(",") if p]
     for w in REFERENCE + CARD:
+        if parts and not any(p in w.name for p in parts):
+            continue
         x = make_inputs(w, rng, device)
         err = compare_plain(w, x, run_kernel(w, x))
+        t = time_kernel(w, x) if args.kernel_only else time_workload(w, x)
         rec = dict(name=w.name, kernel=w.kernel, shape=w.shape, use=w.use,
-                   max_abs_err_vs_plain=err, **time_workload(w, x))
+                   max_abs_err_vs_plain=err, **t)
         print(json.dumps(rec) + f"; card: {card}")
         del x
         torch.cuda.empty_cache()

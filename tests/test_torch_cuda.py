@@ -252,8 +252,39 @@ def test_int8_product_wraps_on_the_card(card):
     assert sm.tc_launch_count == before + 1
 
 
+@pytest.mark.parametrize("F", [3, 161, 1024])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.bfloat16, torch.float16, torch.int8,
+                                   torch.int16, torch.uint8],
+                         ids=lambda d: str(d).split(".")[1])
+def test_conv_kernel_every_dtype_and_large_filters(card, dtype, F):
+    """The conv kernel equals its plain version bit for bit in every image
+    dtype (sums that wrap or saturate), with filters past the old
+    kernel's shared-memory limit, one launch a call."""
+    from repro_torch.kernels import spm_conv2d as sc
+    rng = np.random.default_rng(F)
+    before = sc.launch_count
+    for H, W in ((37, 45), (20, 64)):
+        checks.check_conv(rng, H, W, F, dtype, card, shift=4)
+    torch.cuda.synchronize()
+    assert sc.launch_count == before + 2
+
+
+def test_conv_refuses_a_filter_past_shared_memory(card):
+    """F = 3000 needs more than a block's 227 KB of rings: the wrapper
+    raises before any launch; nothing falls back."""
+    from repro_torch.kernels import spm_conv2d as sc
+    before = sc.launch_count
+    assert sc.smem_bytes(torch.float32, 3000, 32) > sc.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        sc.spm_conv2d(torch.zeros((4, 4), device=card),
+                      torch.zeros((3000, 3000), device=card))
+    assert sc.launch_count == before
+
+
 @pytest.mark.parametrize("name", ["matmul_f32_2048", "matmul_int8_4096",
                                   "conv_int32_2048_f11",
+                                  "conv_int8_2048_f3", "conv_int32_512_f161",
                                   "fft_4096x1024", "composite_1024",
                                   "attn_hymba1.5b_swa_8192",
                                   "attn_mixtral_prefill_cont",

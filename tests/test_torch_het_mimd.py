@@ -77,3 +77,13 @@ def test_rejects_bad_operands():
     with pytest.raises(ValueError):              # A @ B mismatch
         hm.het_mimd_composite(z(5, 5), z(3, 3), z(1, 4), z(1, 4), z(2, 3),
                               z(2, 2))
+
+
+def test_rejects_a_filter_the_conv_tile_cannot_stage():
+    """The conv hart stages a (31 + F)^2 window and the filter in shared
+    memory: F = 155 no longer fits (232 448 bytes a block)."""
+    z = torch.zeros
+    assert hm.check_tile_filter(z(154, 154), z(160, 160)) == 154
+    with pytest.raises(ValueError, match="shared memory"):
+        hm.het_mimd_composite(z(160, 160), z(155, 155), z(1, 4), z(1, 4),
+                              z(2, 2), z(2, 2))

@@ -188,6 +188,11 @@ def test_chip_smoke_compute_phase_rehearsed_on_the_cpu(capsys):
                                          shift=4), ""),
         W("conv_f32", "spm_conv2d", dict(H=37, W=29, F=3, dtype="float32"),
           ""),
+        W("conv_bf16", "spm_conv2d", dict(H=37, W=29, F=3,
+                                          dtype="bfloat16"), ""),
+        W("conv_i8", "spm_conv2d", dict(H=37, W=32, F=4, dtype="int8"), ""),
+        W("conv_i32_f40", "spm_conv2d", dict(H=40, W=37, F=40,
+                                             dtype="int32", shift=4), ""),
         W("fft", "spm_fft", dict(B=5, n=256), ""),
         W("composite", "het_mimd", dict(H=32, W=32, F=3, nb=4, n=256, m=64,
                                         k=64, p=64), "")]
@@ -199,6 +204,31 @@ def test_chip_smoke_compute_phase_rehearsed_on_the_cpu(capsys):
                      for k in smoke.TC_KERNELS}
     assert err == dict.fromkeys(micro.MODULES, 0.0)
     assert capsys.readouterr().out.count("[slice2]") == len(tiny)
+
+
+def test_chip_smoke_conv_formula_samples_rows_of_large_work():
+    """Past its multiply-add limit ``chip_smoke._formula_conv`` forms the
+    first and last ``FORMULA_ROWS`` output rows only, and still catches a
+    wrong value there (not in the rows between)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from repro_torch.kernels import checks
+    from repro_torch.kernels import spm_conv2d as sc
+    rng = np.random.default_rng(4)
+    for dtype, shift in ((torch.int32, 4), (torch.int8, 0),
+                         (torch.float32, 0)):
+        img, filt = checks.conv_operands(rng, 40, 21, 5, dtype, "cpu")
+        out = sc.spm_conv2d(img, filt, shift=shift)
+        smoke._formula_conv("c", out, img, filt, shift, pad=True, limit=100)
+        bad = out.clone()
+        bad[20, 3] += 1                       # between the sampled rows
+        smoke._formula_conv("c", bad, img, filt, shift, pad=True, limit=100)
+        bad[39, 3] += 1
+        with pytest.raises(AssertionError):
+            smoke._formula_conv("c", bad, img, filt, shift, pad=True,
+                                limit=100)
 
 
 def test_chip_smoke_lm_phase_rehearsed_on_the_cpu(capsys):
