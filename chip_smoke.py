@@ -43,6 +43,24 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    run's host split (input stacking, the walk, output unpacking) is
    printed; then the KVI intrinsics (``ops`` element-wise and reduction
    calls), one ``fused_vops`` / ``kdotp`` launch each;
+3b. serve  — the request-driven server (``python -m
+   repro_torch.kvi.serving``'s default: ``DEFAULT_MIX``, 256 Poisson
+   requests, 3 harts, max_batch 8) through ``ServeEngine.run`` on
+   ``get_backend("torch", passes=())``: three rounds of two batched runs
+   and one unbatched, each on a fresh backend (canonical reports
+   byte-identical within each kind); the launch-record cache hit-only in
+   the loop; exactly one ``kvi_walk`` launch per bucket and per prewarm
+   batch (59 batched, 260 unbatched at seed 0), no ``fused_vops`` or
+   ``kdotp`` launch; every run's 256 served outputs equal to the first
+   run's, and those equal to the oracle request by request; a profiled
+   batched run for the walk's device ms by bucket size; every template's
+   instances batched on the card at 1, 2, 4 and 8 equal to the oracle and
+   the CPU backend bit for bit (92 entries). A ``[serve]`` line holds
+   ``execute_s`` of every run, the batching speed-up (the least over all
+   batched runs) beside the reference's 2x gate, ``prewarm_s``,
+   ``req_per_s``, p50 / p99 cycles, the cache counts, the walk launches
+   and each run's split: the backend's calls, their host split (stack /
+   walk / unpack) and the garbage collector's seconds and collections;
 4. slice 2 — the paper's compute kernels at card scale through the
    intrinsics layer ``repro_torch.kernels.ops`` (matmul bf16 / int8 /
    f32, conv2d int32 F = 3, 11 and 161, f32 F = 3 and 11, bf16 and int8
@@ -73,11 +91,14 @@ are the card's name and power limit, a JSON object of kernel numbers
 (``spm_matmul`` and ``flash_attention`` with their main-path launches by
 path; the SSD scan as its three kernels, each with the whole call under
 ``scan``; ``kvi_walk`` with every main-path structure under
-``workloads``) and ``{"ok": true, "device": {...}}``.
+``workloads`` and serving's launches and device ms by bucket size under
+``serving``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -491,6 +512,252 @@ def time_walks(rng, device, sweep=(32, 64, 128)):
         torch.cuda.empty_cache()
     fv.launch_count, kd.launch_count, kw.launch_count = saved
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving: python -m repro_torch.kvi.serving's default configuration
+# ---------------------------------------------------------------------------
+
+#: the CLI's default (the reference's full serving setting): DEFAULT_MIX,
+#: 256 Poisson requests, mean gap 40 cycles, 1000 clients, 3 harts,
+#: max_batch 8
+SERVE = dict(requests=256, gap=40.0, clients=1000, harts=3, max_batch=8)
+#: rounds of timed serving runs (two batched, one unbatched each): the
+#: batching speed-up is read from the slowest batched run of all
+SERVE_ROUNDS = 3
+
+
+def _watch(be):
+    """Wrap ``be.run_workload`` to record each call's batch size, and for
+    the serving loop's calls (workloads named ``serve.*``; prewarm batches
+    are ``prewarm.*``) their workloads and results, their wall seconds
+    (``backend_s``) and their summed host split (``TorchBackend.host_s``).
+    Raises when a result holds another number of entries than its
+    workload."""
+    log = {"sizes": [], "host_s": {}, "backend_s": 0.0, "served": []}
+    run = be.run_workload
+
+    def run_workload(wl, verify=None):
+        t0 = time.perf_counter()
+        res = run(wl, verify)
+        dt = time.perf_counter() - t0
+        if len(res.entry_results) != len(wl.entries):
+            raise AssertionError(f"{wl.name}: {len(res.entry_results)} "
+                                 f"results for {len(wl.entries)} entries")
+        log["sizes"].append(len(wl.entries))
+        if wl.name.startswith("serve."):
+            log["backend_s"] += dt
+            log["served"].append((wl, res))
+            for k, v in be.host_s.items():
+                log["host_s"][k] = log["host_s"].get(k, 0.0) + v
+        return res
+    be.run_workload = run_workload
+    return log
+
+
+@contextlib.contextmanager
+def gc_clock():
+    """Seconds spent in Python's garbage collector, and its collections by
+    generation, while the block runs (``gc.callbacks``)."""
+    rec = {"gc_s": 0.0, "collections": [0, 0, 0]}
+    start = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            rec["gc_s"] += time.perf_counter() - start[0]
+            rec["collections"][info["generation"]] += 1
+    gc.callbacks.append(on_gc)
+    try:
+        yield rec
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def served_outputs(watch):
+    """The outputs of every request a serving run executed, in execution
+    order (the same request order batched and unbatched)."""
+    return [(e.program, r.outputs) for wl, res in watch["served"]
+            for e, r in zip(wl.entries, res.entry_results)]
+
+
+def same_outputs(got, want):
+    """True when two output dicts hold the same arrays bit for bit, dtype
+    included."""
+    return got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in want)
+
+
+def walk_launch_ms(prof):
+    """Device ms of each ``kvi_walk`` launch in a profiler trace, in
+    launch order (empty when the trace holds no device time)."""
+    evs = [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+           and "kvi_walk_kernel" in e.name]
+    evs.sort(key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in evs]
+
+
+def run_serve(device, seed, log=print):
+    """Phase 3b: ``ServeEngine.run`` over ``get_backend("torch",
+    passes=())`` on ``device`` at :data:`SERVE`, in :data:`SERVE_ROUNDS`
+    rounds of two batched runs and one unbatched, each on a fresh backend,
+    with every launch counter set to 0 just before and read just after.
+    Asserts byte-identical canonical reports (batched with batched,
+    unbatched with unbatched), a steady hit rate of 1.0 with no rebuild in
+    the loop, exactly one ``kvi_walk`` launch per bucket and per prewarm
+    batch and no ``fused_vops`` / ``kdotp`` launch, every run's served
+    outputs equal to the first run's and those equal to the oracle, request
+    by request; then a batched run under the profiler (device ms by bucket
+    size) and the oracle gate: 8 instances of every template, batched on
+    the device at 1, 2, 4 and 8, equal to the oracle and to the CPU backend
+    bit for bit. The batching speed-up is each round's unbatched
+    ``execute_s`` over each of its batched ones, and the least of them is
+    held against the reference's 2x; each run's split (the backend's
+    calls, their host split, the garbage collector) stands beside it.
+    Returns the record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import fused_vops as fv
+    from repro_torch.kernels import kdotp as kd
+    from repro_torch.kernels import kvi_walk as kw
+    from repro_torch.kvi import get_backend
+    from repro_torch.kvi.serving import (DEFAULT_MIX, ServeEngine,
+                                         canonical_report, make_templates,
+                                         poisson_arrivals)
+    from repro_torch.kvi.serving.checks import (CHECK_SIZES,
+                                                check_against_oracle)
+    templates = make_templates(DEFAULT_MIX, smoke=False, seed=seed)
+    specs = poisson_arrivals(templates, SERVE["requests"], SERVE["gap"],
+                             n_clients=SERVE["clients"], seed=seed)
+
+    def serve(batching):
+        be = get_backend("torch", passes=(), device=device)
+        watch = _watch(be)
+        with gc_clock() as gcr:
+            rep = ServeEngine(templates, n_harts=SERVE["harts"], backend=be,
+                              batching=batching, max_batch=SERVE["max_batch"],
+                              seed=seed).run(specs)
+        prewarm = len(templates) * (SERVE["max_batch"].bit_length()
+                                    if batching else 1)
+        want = sum(rep["batch_sizes"].values()) + prewarm
+        if be.walk_calls != want or len(watch["sizes"]) != want:
+            raise AssertionError(
+                f"serve (batching={batching}): {be.walk_calls} walk "
+                f"launches over {len(watch['sizes'])} batches, want {want}"
+                f" (one per bucket and per prewarm batch)")
+        cc = rep["compile_cache"]
+        if cc["steady_hit_rate"] != 1.0 or cc["loop_misses"]:
+            raise AssertionError(f"serve (batching={batching}): records "
+                                 f"rebuilt in the loop: {cc}")
+        split = dict(batching=batching,
+                     execute_s=rep["throughput"]["execute_s"],
+                     backend_s=round(watch["backend_s"], 6),
+                     host_s={k: round(v, 6)
+                             for k, v in watch["host_s"].items()},
+                     gc_s=round(gcr["gc_s"], 6),
+                     gc_collections=gcr["collections"])
+        return rep, be.walk_calls, watch, split
+
+    fv.launch_count = kd.launch_count = kw.launch_count = 0
+    rounds = [[serve(True), serve(True), serve(False)]
+              for _ in range(SERVE_ROUNDS)]
+    torch.cuda.synchronize()
+    runs = [r for rnd in rounds for r in rnd]
+    launches = kw.launch_count
+    if fv.launch_count or kd.launch_count:
+        raise AssertionError(f"serving launched per-step kernels: fused_vops"
+                             f" {fv.launch_count}, kdotp {kd.launch_count}")
+    if launches != sum(r[1] for r in runs):
+        raise AssertionError(f"kvi_walk launches {launches} disagree with "
+                             f"the backends' {[r[1] for r in runs]}")
+    batched = [r for r in runs if r[3]["batching"]]
+    unbatched = [r for r in runs if not r[3]["batching"]]
+    for group in (batched, unbatched):
+        if len({canonical_report(r[0]) for r in group}) != 1:
+            raise AssertionError("serving runs of one kind gave different "
+                                 "canonical reports")
+    rep_a, walks_a, watch_a, _ = batched[0]
+    rep_u, walks_u, _, _ = unbatched[0]
+    if seed == 0 and {(r[1], r[3]["batching"]) for r in runs} != {
+            (59, True), (260, False)}:
+        raise AssertionError(f"walk launches {[r[1] for r in runs]}; the "
+                             f"seed-0 stream needs 59 batched, 260 unbatched")
+
+    # every run served the same outputs, and they are the oracle's
+    oracle = get_backend("oracle")
+    first = served_outputs(watch_a)
+    if len(first) != SERVE["requests"]:
+        raise AssertionError(f"the batched run served {len(first)} requests"
+                             f" of {SERVE['requests']}")
+    for j, (_, _, watch, split) in enumerate(runs):
+        outs = served_outputs(watch)
+        if len(outs) != len(first) or not all(
+                same_outputs(o, f) for (_, o), (_, f) in zip(outs, first)):
+            raise AssertionError(f"serving run {j} (batching="
+                                 f"{split['batching']}) served other outputs "
+                                 f"than run 0")
+    for i, (prog, outs) in enumerate(first):
+        if not same_outputs(outs, oracle.run(prog).outputs):
+            raise AssertionError(f"served request {i} ({prog.name}) differs "
+                                 f"from the oracle")
+
+    # the device time of each launch of one more batched run, by bucket
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, watch_p, _ = serve(True)
+        torch.cuda.synchronize()
+    per_launch = walk_launch_ms(prof)
+    by_bucket = None
+    if per_launch:
+        if len(per_launch) != len(watch_p["sizes"]):
+            raise AssertionError(f"the profiler holds {len(per_launch)} "
+                                 f"walk launches of {len(watch_p['sizes'])}")
+        by_bucket = {}
+        for size, ms in zip(watch_p["sizes"], per_launch):
+            b = by_bucket.setdefault(str(size), {"launches": 0, "ms": 0.0})
+            b["launches"] += 1
+            b["ms"] += ms
+        for b in by_bucket.values():
+            b["ms_per_launch"] = b["ms"] / b["launches"]
+
+    compared = check_against_oracle(
+        templates, seed, get_backend("torch", passes=(), device=device),
+        others=(get_backend("torch", passes=(), device="cpu"),))
+    want = len(templates) * (sum(CHECK_SIZES) + max(CHECK_SIZES))
+    if compared != want:
+        raise AssertionError(f"the oracle gate compared {compared} entries, "
+                             f"want {want}")
+    splits = []
+    for rnd in rounds:
+        t_u = rnd[2][3]["execute_s"]
+        for _, _, _, split in rnd:
+            if split["batching"]:
+                split["speedup_x"] = t_u / max(split["execute_s"], 1e-9)
+            splits.append(split)
+    speedup = min(s["speedup_x"] for s in splits if s["batching"])
+    tb, tu = rep_a["throughput"], rep_u["throughput"]
+    cc = rep_a["compile_cache"]
+    rec = dict(
+        config=dict(SERVE, mix=sorted(templates), seed=seed,
+                    rounds=SERVE_ROUNDS),
+        n_steps=rep_a["n_steps"], batch_sizes=rep_a["batch_sizes"],
+        execute_s=dict(batched=[r[3]["execute_s"] for r in batched],
+                       unbatched=[r[3]["execute_s"] for r in unbatched]),
+        batching_speedup_x=speedup, speedup_ge_2x=speedup >= 2.0,
+        prewarm_s=tb["prewarm_s"], req_per_s=dict(
+            batched=tb["req_per_s"], unbatched=tu["req_per_s"]),
+        latency_cycles={k: rep_a["latency_cycles"][k] for k in ("p50",
+                                                                 "p99")},
+        compile_cache={k: cc[k] for k in ("hits", "misses", "entries",
+                                          "loop_misses", "steady_hit_rate")},
+        walk_launches=dict(batched=walks_a, unbatched=walks_u, total=launches),
+        runs=splits, deterministic=True, served_equal_oracle=len(first),
+        oracle_entries=compared, device_ms_by_bucket=by_bucket)
+    log(f"[serve] {json.dumps(rec)}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1081,6 +1348,12 @@ def main(argv=None) -> int:
 
     stamp("slice 1")
 
+    # 3b. serving on the card ----------------------------------------------
+    serving = run_serve(device, args.seed,
+                        log=lambda m: print(f"{m}; card: {card}"))
+
+    stamp("serve")
+
     # 4. slices 2 and 3 on the card ----------------------------------------
     paths = {}
     for tag, kernels in (("slice2", SLICE2), ("slice3", SLICE3)):
@@ -1113,7 +1386,11 @@ def main(argv=None) -> int:
         t["bound_ms"], t["bound_by"] = _bound(t)
     times["kvi_walk"] = dict(walk_times[WALK_SHOWN], shape=WALK_SHOWN,
                              workloads=walk_times,
-                             also_replaces=WALK_ALSO_REPLACES)
+                             also_replaces=WALK_ALSO_REPLACES,
+                             serving=dict(
+                                 launches=serving["walk_launches"],
+                                 device_ms_by_bucket=serving[
+                                     "device_ms_by_bucket"]))
     by_kernel = {k: {} for k in micro.MODULES}
     for w in micro.CARD:
         x = inputs.pop(w.name)
@@ -1153,7 +1430,8 @@ def main(argv=None) -> int:
         entry.update({k: t[k] for k in ("ms_source", "call_ms",
                                         "plain_call_ms", "library_call_ms",
                                         "shape")})
-        for extra in ("kvred", "workloads", "scan", "also_replaces"):
+        for extra in ("kvred", "workloads", "scan", "also_replaces",
+                      "serving"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in paths:

@@ -8,12 +8,15 @@ it on the port's backend::
     res = get_backend("torch").run_workload(workload)   # on the card
     get_backend("torch", device="cpu").run(program)     # plain torch
 
-``torch`` runs every planned fused element-wise region as one launch of
-the hand-written CUDA interpreter kernel
-(:mod:`repro_torch.kernels.fused_vops`) and every reduction as one launch
-of the batched reduction kernel (:mod:`repro_torch.kernels.kdotp`), over
-all N instances of a structure at once. On CPU tensors the same wrappers
-run their plain PyTorch versions.
+``torch`` runs a structure's whole walk — every copy, planned fused
+element-wise region and reduction — as one launch of the hand-written
+CUDA walk kernel (:mod:`repro_torch.kernels.kvi_walk`) over all N
+instances at once; with ``device="cpu"`` the walk's plain PyTorch version
+runs instead. ``oracle`` is the paper's MFU datapath in numpy
+(:mod:`repro_torch.core.mfu`), reached through :func:`lower`, the
+binding of a program's vregs to scratchpad addresses (an impossible fit
+raises :class:`SpmOverflowError`). Request-driven serving is
+:mod:`repro_torch.kvi.serving` (``python -m repro_torch.kvi.serving``).
 """
 from repro_torch.kvi.backend import (Backend, BackendBase, BackendResult,
                                      available_backends, get_backend,
@@ -24,6 +27,7 @@ from repro_torch.kvi.ir import (ELEMWISE_OPS, MEM_OPS, REDUCTION_OPS,
                                 KviInstr, KviOp, KviProgram,
                                 KviProgramBuilder, MemRef, Ref, ScalarBlock,
                                 VReg, View)
+from repro_torch.kvi.lowering import LoweredTrace, SpmOverflowError, lower
 from repro_torch.kvi.passes import (DEFAULT_PASSES, FusedRegion, FusionPlan,
                                     PassPipeline, default_pipeline,
                                     optimize_program, plan_fusion_regions)
@@ -37,7 +41,8 @@ __all__ = [
     "array_from_reference",
     "KviInstr", "KviOp", "KviProgram", "KviProgramBuilder", "MemRef", "Ref",
     "ScalarBlock", "VReg", "View", "ELEMWISE_OPS", "MEM_OPS",
-    "REDUCTION_OPS", "PassPipeline", "DEFAULT_PASSES", "default_pipeline",
+    "REDUCTION_OPS", "LoweredTrace", "lower", "SpmOverflowError",
+    "PassPipeline", "DEFAULT_PASSES", "default_pipeline",
     "optimize_program", "plan_fusion_regions", "FusedRegion", "FusionPlan",
     "HartAssignment", "KviWorkload", "WorkloadEntry", "WorkloadResult",
     "structural_signature",

@@ -8,7 +8,9 @@ by ``run_workload()``, which returns a
 ``run()`` wraps the program into a one-entry workload.
 
 The port keeps its own registry: ``get_backend("torch")`` builds the
-:class:`~repro_torch.kvi.torch_backend.TorchBackend`. Nothing here is
+:class:`~repro_torch.kvi.torch_backend.TorchBackend`, and
+``get_backend("oracle")`` the numpy MFU datapath
+(:class:`~repro_torch.kvi.oracle.OracleBackend`). Nothing here is
 shared with, or registered in, the reference package.
 """
 from __future__ import annotations
@@ -100,6 +102,23 @@ class BackendBase:
         return workload.map_programs(pipe.run)
 
 
+#: why a live telemetry bundle is refused: the port has neither the
+#: tracer and metrics nor the reference's hooks that feed them, and no
+#: span is dropped in silence
+TELEMETRY_MISSING = (
+    "telemetry (obs=, --trace-out, --metrics-out) needs the reference's "
+    "tracer and metrics (repro.kvi.obs), which the port has not copied "
+    "yet: ROADMAP.md queue 1 item 4")
+
+
+def refuse_obs(obs) -> None:
+    """Raise ``NotImplementedError`` for a telemetry bundle: the port
+    takes ``obs=None`` where the reference takes an ``Obs``, and nothing
+    else until its tracer and metrics are copied."""
+    if obs is not None:
+        raise NotImplementedError(TELEMETRY_MISSING)
+
+
 _REGISTRY: Dict[str, Callable[..., Backend]] = {}
 
 
@@ -131,7 +150,7 @@ def available_backends() -> Dict[str, Callable[..., Backend]]:
 
 
 def _ensure_builtin_backends():
-    """Import the built-in backend module so its ``@register_backend``
-    decorator runs. An import error propagates: a backend that fails to
+    """Import the built-in backend modules so their ``@register_backend``
+    decorators run. An import error propagates: a backend that fails to
     import is a fault, not an absent option."""
-    from repro_torch.kvi import torch_backend  # noqa: F401  (registers)
+    from repro_torch.kvi import oracle, torch_backend  # noqa: F401

@@ -40,7 +40,7 @@ from repro_torch.kernels import kvi_walk as _kw
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.fused_vops import Windows, program_words
 from repro_torch.kvi.backend import (BackendBase, BackendResult,
-                                     register_backend)
+                                     refuse_obs, register_backend)
 from repro_torch.kvi.ir import KviInstr, KviOp, KviProgram, ScalarBlock
 from repro_torch.kvi.passes.fusion import (MAX_FUSED_INPUTS, MAX_FUSED_OPS,
                                            META_KEY, FusedRegion, FusionPlan,
@@ -141,6 +141,10 @@ class TorchBackend(BackendBase):
     program; programs optimized by the default pipeline arrive with a
     :class:`FusionPlan` under the same bounds and run as planned.
 
+    ``obs`` is the reference's telemetry bundle: ``None`` is accepted as
+    the reference's call passes it; a live bundle raises
+    ``NotImplementedError`` until the port copies the telemetry layer.
+
     Counts: ``fused_calls`` / ``reduce_calls`` count the regions and
     reductions walked, one each per batch of N instances — the
     reference's ``pallas_calls``, on both devices; ``walk_calls`` counts
@@ -157,7 +161,8 @@ class TorchBackend(BackendBase):
                  max_fused_ops: int = MAX_FUSED_OPS,
                  max_fused_inputs: int = MAX_FUSED_INPUTS,
                  passes=None, verify: bool = False,
-                 kernel_cache: Optional[KernelCache] = None):
+                 kernel_cache: Optional[KernelCache] = None, obs=None):
+        refuse_obs(obs)
         if verify:
             raise NotImplementedError(
                 "verify=True needs the static analyzer, which the port has "

@@ -190,6 +190,28 @@ class KviWorkload:
                 f"{'homogeneous' if self.is_homogeneous else 'composite'})")
 
 
+def dedup_entry_outputs(entries: Sequence[WorkloadEntry], run_program
+                        ) -> List[Dict[str, object]]:
+    """Per-entry outputs with each distinct program OBJECT executed once:
+    ``run_program(program) -> outputs dict`` runs on first sight; sibling
+    entries reusing the same object get array copies, so mutating one
+    entry's buffers cannot corrupt the others. The ``oracle`` backend's
+    per-entry execution rides on it, as in the reference."""
+    cache: Dict[int, Dict[str, object]] = {}
+    seen = set()
+    outs = []
+    for e in entries:
+        k = id(e.program)
+        if k not in cache:
+            cache[k] = run_program(e.program)
+        out = cache[k]
+        if k in seen:
+            out = {name: v.copy() for name, v in out.items()}
+        seen.add(k)
+        outs.append(out)
+    return outs
+
+
 @dataclass
 class WorkloadResult:
     """What one backend run of a workload produced.

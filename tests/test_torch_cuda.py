@@ -2,9 +2,11 @@
 same CUDA tensors, at the main path's shapes (and, for the compute
 kernels, at odd shapes and one card-scale shape each; for the KVI walk
 kernel, its edge programs, random programs and both arena layouts), and
-the backend on the card against the backend on the CPU. Marked ``cuda``; they skip with a reason
-where no card (or no nvcc) is present — decided in a fixture, never at
-import, so every worker collects the same tests. Run them on the card:
+the backend on the card against the backend on the CPU (and, serving
+the CLI's default stream, against the oracle and the CPU server).
+Marked ``cuda``; they skip with a reason where no card (or no nvcc) is
+present — decided in a fixture, never at import, so every worker
+collects the same tests. Run them on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -20,6 +22,10 @@ from repro_torch.kernels import kvi_walk as kw
 from repro_torch.kernels import micro
 from repro_torch.kernels.build import nvcc_path
 from repro_torch.kvi.programs import conv2d_program, fft_program
+from repro_torch.kvi.serving import (DEFAULT_MIX, ServeEngine,
+                                     canonical_report, make_templates,
+                                     poisson_arrivals)
+from repro_torch.kvi.serving.checks import check_against_oracle
 from repro_torch.kvi.torch_backend import TorchBackend
 
 pytestmark = pytest.mark.cuda
@@ -114,6 +120,39 @@ def test_backend_on_the_card_equals_cpu(card):
     for g, w in zip(got.entry_results, want.entry_results):
         for name, arr in w.outputs.items():
             np.testing.assert_array_equal(g.outputs[name], arr)
+
+
+@pytest.mark.parametrize("size", [1, 2, 4, 8])
+def test_served_requests_on_the_card_equal_the_oracle(card, size):
+    """Serving's four templates (``DEFAULT_MIX``), ``size`` instances a
+    batch: one walk launch each, outputs bit for bit the oracle's and the
+    CPU backend's."""
+    templates = make_templates(DEFAULT_MIX, smoke=False, seed=0)
+    be = TorchBackend(passes=())
+    w0 = kw.launch_count
+    n = check_against_oracle(templates, 0, be, sizes=(size,), others=(
+        TorchBackend(device="cpu", passes=()),))
+    assert n == 2 * len(templates) * size
+    assert kw.launch_count - w0 == be.walk_calls == len(templates)
+
+
+@pytest.mark.parametrize("batching", [True, False])
+def test_server_on_the_card_equals_the_cpu_server(card, batching):
+    """The CLI's default stream (256 requests) on the card: one walk
+    launch per bucket and per prewarm batch, no per-step launch, the
+    cache hit-only in the loop, and the CPU backend's canonical report."""
+    templates = make_templates(DEFAULT_MIX, smoke=False, seed=0)
+    specs = poisson_arrivals(templates, 256, 40.0, seed=0)
+    f0, r0 = fv.launch_count, kd.launch_count
+    be = TorchBackend(passes=())
+    rep = ServeEngine(templates, backend=be, batching=batching).run(specs)
+    want = ServeEngine(templates, backend=TorchBackend(
+        device="cpu", passes=()), batching=batching).run(specs)
+    assert canonical_report(rep) == canonical_report(want)
+    assert be.walk_calls == (59 if batching else 260)
+    assert (fv.launch_count, kd.launch_count) == (f0, r0)
+    assert rep["compile_cache"]["steady_hit_rate"] == 1.0
+    assert rep["compile_cache"]["loop_misses"] == 0
 
 
 def _walk_cases():
