@@ -32,7 +32,15 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    int8 product whose int32 sums wrap (no saturation); ``spm_fft`` bit
    for bit against its plain version at every n = 1 .. 16384; then TF32
    products (cuBLAS with TF32 allowed), which the float32 matmul check
-   must reject;
+   must reject; then the inputs the reference takes past the first
+   kernels' limits (``checks.EDGE_CHECKS``, one ``[edge]`` line each:
+   attention at hd 160 / 176 / 256 / 320, in float16 and with negative
+   windows; matmul on int16 / int32 / uint8 / float16 and int8 into
+   float outputs, XLA's casts at their edges; FFTs of 32768 and 131072
+   points; uint8 kdotp / kvred / fused_vops at the intrinsics' sizes;
+   the SSD scan at N 1024 and with float16 x; a 161 x 161 composite
+   filter), each against its plain version with its launch counter
+   moved;
 3. slice 1 — the KVI main path at the paper's sizes through
    ``get_backend("torch").run_workload``: conv2d 32x32 (F = 3 and 11),
    FFT-256, streamed matmul 64x64 (kdotp and kdotpps), pipeline_demo and
@@ -61,12 +69,22 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    ``req_per_s``, p50 / p99 cycles, the cache counts, the walk launches
    and each run's split: the backend's calls, their host split (stack /
    walk / unpack) and the garbage collector's seconds and collections;
+3v. verify — every phase-3 workload at phase 3's widths again, through
+   ``TorchBackend(verify=True)`` (the static analyzer over every
+   instance, then the walk) beside phase 3's ``verify=False`` backend:
+   outputs equal entry by entry and to the numpy formulas, the same walk
+   launches (one a group), the first 4 entries of each group equal to
+   the oracle's; a ``[verify]`` line each with the analyzer's host
+   seconds beside phase 3's warm wall; every prototype through the
+   default pass pipeline in its self-checking mode, its plan unchanged;
+   a mutant of the verifier fuzz catalog refused with
+   ``KviVerificationError`` before any ``kvi_walk`` launch;
 4. slice 2 — the paper's compute kernels at card scale through the
    intrinsics layer ``repro_torch.kernels.ops`` (matmul bf16 / int8 /
-   f32, conv2d int32 F = 3, 11 and 161, f32 F = 3 and 11, bf16 and int8
-   F = 3, FFT 16384 x 256 and
-   4096 x 1024, the het-MIMD composite at the paper's size and at 1024,
-   and the 1024 composite's three parts alone),
+   f32, f16 4096^3 and int32 2048^3, conv2d int32 F = 3, 11 and 161,
+   f32 F = 3 and 11, bf16 and int8 F = 3, FFT 16384 x 256, 4096 x 1024
+   and 256 x 65536, the het-MIMD composite at the paper's size, at 1024
+   and at 512 with F = 161, and the 1024 composite's three parts alone),
    each output held against its plain version on the same tensors and
    against an independent numpy formula (int64 sums, float64 products
    and FFTs); the launch counters must show one launch per call, on the
@@ -75,7 +93,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    launches a call: chunk states, the scan over chunks, the chunk scan)
    at the widths of the repo's configs (llama3.2-1b causal 4096,
    hymba-1.5b window 2048 over 8192, a mixtral prefill continuation,
-   mamba2-1.3b's SSD at 4096), driven likewise with the counters set to
+   pixtral-12b's head width 160 causal at 4096, mamba2-1.3b's SSD at
+   4096), driven likewise with the counters set to
    0 just before, each output against its plain version and a float64
    numpy formula on sampled heads and rows;
 5. time    — each kernel at main-path shapes with ``torch.profiler`` and
@@ -84,15 +103,17 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    kernel per main-path structure beside the per-step route it replaced;
    for the compute and LM kernels every workload of phase 4, with the
    path that ran and, for a tensor-core product, the time of its operand
-   glue.
+   glue; composite_1024 with its conv hart staging the whole window and
+   streaming rows, in turns.
 
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers
 (``spm_matmul`` and ``flash_attention`` with their main-path launches by
 path; the SSD scan as its three kernels, each with the whole call under
 ``scan``; ``kvi_walk`` with every main-path structure under
-``workloads`` and serving's launches and device ms by bucket size under
-``serving``) and ``{"ok": true, "device": {...}}``.
+``workloads``, serving's launches and device ms by bucket size under
+``serving`` and phase 3v's launches and analyzer seconds under
+``verified``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -349,6 +370,123 @@ def run_slice(device, rng, scale=1, log=print):
         if on_card:
             torch.cuda.empty_cache()
     return be, records
+
+
+def mutant_workload(rng, n: int = 8):
+    """A workload the static analyzer must refuse: ``n`` conv32_f3
+    instances, the first carrying the first mutant of the verifier fuzz
+    catalog (``oob:<i>:dst``: the first vector instruction's destination
+    moved one register length on), rebuilt with the port's IR. Returns
+    the workload and the mutant's label."""
+    import dataclasses
+    from repro_torch.kvi import KviInstr, KviWorkload
+    progs, _ = conv_instances(rng, n, F=3)
+    p = progs[0]
+    idx, it = next((i, it) for i, it in enumerate(p.items)
+                   if isinstance(it, KviInstr) and it.dst is not None
+                   and it.dst.space == "vreg")
+    reg = p.vregs[it.dst.id]
+    items = list(p.items)
+    items[idx] = dataclasses.replace(it, dst=dataclasses.replace(
+        it.dst, offset=it.dst.offset + reg.length))
+    bad = dataclasses.replace(p, items=tuple(items))
+    return (KviWorkload.composite({0: [bad] + progs[1:]},
+                                  name="conv32_f3_mutant"),
+            f"oob:{idx}:dst")
+
+
+def same_results(name, got, want):
+    """Two runs of one workload: every entry's outputs equal, dtype and
+    all."""
+    for i, (g, w) in enumerate(zip(got.entry_results, want.entry_results)):
+        for key, arr in w.outputs.items():
+            if g.outputs[key].dtype != arr.dtype or \
+                    not np.array_equal(g.outputs[key], arr):
+                raise AssertionError(f"{name}: entry {i} output {key} "
+                                     f"differs between verify=True and "
+                                     f"verify=False")
+    if len(got.entry_results) != len(want.entry_results):
+        raise AssertionError(f"{name}: entry counts differ")
+
+
+def run_verify(device, rng, be_off, warm_walls, scale=1, log=print):
+    """Phase 3v: every main-path workload at phase 3's widths through
+    ``TorchBackend(verify=True)`` (the static analyzer over every
+    instance, then the walk), against the same workload through phase
+    3's ``verify=False`` backend ``be_off``: outputs equal entry by
+    entry, the same walk launches (one a structural group). The oracle
+    (``get_backend("oracle")``) re-runs the first ``N_CHECK`` entries of
+    each group: the outputs must equal its. Each prototype also goes
+    through the default pass pipeline in its self-checking mode
+    (``PassPipeline(verify=True)``: the analyzer after every pass) and
+    must come out planned as it went in. Last, a mutant workload must be
+    refused with ``KviVerificationError`` before any ``kvi_walk``
+    launch. ``warm_walls`` are phase 3's warm walls by workload."""
+    import torch
+    from repro_torch.kernels import kvi_walk as kw
+    from repro_torch.kvi import KviWorkload, get_backend
+    from repro_torch.kvi.analysis import KviVerificationError
+    from repro_torch.kvi.passes import META_KEY, PassPipeline
+    be = get_backend("torch", device=device, passes=(), verify=True)
+    oracle = get_backend("oracle", passes=())
+    on_card = torch.device(device).type == "cuda"
+    records = []
+    for name, wl, want in main_path_workloads(rng, scale):
+        w0 = be_off.walk_calls
+        off = be_off.run_workload(wl)
+        w1 = be.walk_calls
+        on = be.run_workload(wl)
+        walks = (be_off.walk_calls - w0, be.walk_calls - w1)
+        same_results(name, on, off)
+        check_outputs(name, on, want)
+        if walks[0] != walks[1] or walks[1] != (on.meta["groups"]
+                                                if on_card else 0):
+            raise AssertionError(f"{name}: walk launches {walks} "
+                                 f"(verify=False, verify=True), want one "
+                                 f"per group each")
+        seen, idx = {}, []
+        for i, e in enumerate(wl.entries):
+            key = (id(e.program.items), e.hart)
+            if seen.get(key, 0) < N_CHECK:
+                seen[key] = seen.get(key, 0) + 1
+                idx.append(i)
+        ref = oracle.run_workload(KviWorkload(wl.name, tuple(
+            wl.entries[i] for i in idx)))
+        for j, i in enumerate(idx):
+            for key, arr in ref.entry_results[j].outputs.items():
+                if not np.array_equal(on.entry_results[i].outputs[key], arr):
+                    raise AssertionError(f"{name}: entry {i} output {key} "
+                                         f"differs from the oracle")
+        rec = dict(phase=name, N=len(wl.entries), walk_launches=walks[1],
+                   analyzer_host_s=round(be.host_s["verify_s"], 6),
+                   verified_wall_s=on.meta["wall_s"],
+                   warm_wall_s=warm_walls.get(name),
+                   unverified_wall_s=off.meta["wall_s"],
+                   oracle_entries=len(idx))
+        records.append(rec)
+        log(f"[verify] {json.dumps(rec)}")
+        del off, on
+    protos = 0
+    for name, proto, _ in main_path_structures(rng, scale):
+        out = PassPipeline.from_spec(None, verify=True).run(proto)
+        if out.meta.get(META_KEY) != proto.meta.get(META_KEY):
+            raise AssertionError(f"{name}: the verified pipeline planned "
+                                 f"the prototype anew")
+        protos += 1
+    bad, label = mutant_workload(rng)
+    before = kw.launch_count
+    try:
+        be.run_workload(bad)
+    except KviVerificationError as e:
+        refusal = str(e).splitlines()[0]
+    else:
+        raise AssertionError("the mutant workload ran under verify=True")
+    if kw.launch_count != before:
+        raise AssertionError("the refused workload launched kvi_walk")
+    log(f"[verify] {protos} prototypes through the self-checking pass "
+        f"pipeline unchanged; mutant {label} refused before any kvi_walk "
+        f"launch: {refusal}")
+    return records
 
 
 def main_path_structures(rng, scale: int = 1):
@@ -793,12 +931,12 @@ def _np_correlate(padded, filt, rows=None):
     return acc
 
 
-def _formula_matmul(name, got, a, b, bf16_out):
+def _formula_matmul(name, got, a, b, step):
     """The first and last ``FORMULA_ROWS`` rows: int8 as an int64 sum
-    wrapped to int32, exactly; floats against the float64 product,
-    within the probabilistic bound of one float32 sum
-    (``checks.dot_tolerance``) plus one bf16 step of the output's
-    rounding."""
+    wrapped to int32, exactly; other operands against the float64
+    product, within the probabilistic bound of one float32 sum
+    (``checks.dot_tolerance``) plus ``step`` of the output's rounding
+    (exact for integer operands whose sums float32 holds exactly)."""
     import torch
     from repro_torch.kernels.checks import dot_tolerance
     a, b, got = _np(a), _np(b), _np(got)
@@ -815,9 +953,7 @@ def _formula_matmul(name, got, a, b, bf16_out):
     want = a64 @ b64
     tol = dot_tolerance(torch.from_numpy(a64), torch.from_numpy(b64),
                         sums=1).numpy()
-    if bf16_out:
-        tol = tol + 2.0 ** -7 * np.abs(want)
-    return _within(name, got[rows], want, tol)
+    return _within(name, got[rows], want, tol + step * np.abs(want))
 
 
 def _formula_conv(name, got, img, filt, shift, pad, limit=1 << 30):
@@ -876,6 +1012,7 @@ def _formula_attention(name, got, q, k, v, causal, window, q_offset):
     query rows of the first and the last head (a row that sees no key
     gives 0), within the JAX test's tolerance (2e-3 relative and
     absolute) plus one bf16 step of the output's rounding."""
+    from repro_torch.kernels.checks import output_step
     B, H, Sq, hd = q.shape
     G = H // k.shape[1]
     rows = np.unique(np.r_[0:min(FORMULA_ROWS, Sq),
@@ -902,8 +1039,7 @@ def _formula_attention(name, got, q, k, v, causal, window, q_offset):
         if got.dtype != q.dtype or got.shape != q.shape:
             raise AssertionError(f"{name}: output {got.dtype} "
                                  f"{tuple(got.shape)}")
-        if str(got.dtype).endswith("bfloat16"):
-            tol = tol + 2.0 ** -7 * np.abs(want)
+        tol = tol + output_step(got.dtype) * np.abs(want)
         err = max(err, _within(f"{name} b{b} h{h}", _np(got[b, h])[rows],
                                want, tol))
     return err
@@ -914,6 +1050,7 @@ def _formula_ssd(name, got, x, dt, A, B, C):
     first and the last (batch, head): y and the final state within the
     JAX test's tolerance (3e-3 relative and absolute), plus one bf16 step
     for a bf16 y."""
+    from repro_torch.kernels.checks import output_step
     Bz, S, H, P = x.shape
     rep = H // B.shape[2]
     y, state = got
@@ -929,9 +1066,7 @@ def _formula_ssd(name, got, x, dt, A, B, C):
         for t in range(S):
             st = st * a[t] + np.outer(dts[t] * xs[t], Bs[t])
             want[t] = st @ Cs[t]
-        tol = 3e-3 * (1 + np.abs(want))
-        if str(y.dtype).endswith("bfloat16"):
-            tol = tol + 2.0 ** -7 * np.abs(want)
+        tol = (3e-3 + output_step(y.dtype)) * np.abs(want) + 3e-3
         err = max(err, _within(f"{name} y b{b} h{h}", _np(y[b, :, h]), want,
                                tol),
                   _within(f"{name} state b{b} h{h}", _np(state[b, h]), st.T,
@@ -943,10 +1078,10 @@ def formula_check(w, x, out) -> float:
     """The workload's output against a numpy formula that shares no code
     with the kernel or its plain version; the largest absolute
     difference."""
-    import torch
+    from repro_torch.kernels.checks import output_step
     if w.kernel == "spm_matmul":
         return _formula_matmul(w.name, out, x["a"], x["b"],
-                               out.dtype == torch.bfloat16)
+                               output_step(out.dtype))
     if w.kernel == "spm_conv2d":
         return _formula_conv(w.name, out, x["img"], x["filt"], x["shift"],
                              pad=True)
@@ -962,8 +1097,7 @@ def formula_check(w, x, out) -> float:
     return max(_formula_conv(f"{w.name} conv", conv, x["img"], x["filt"],
                              0, pad=False),
                _formula_fft(f"{w.name} fft", ore, oim, x["fre"], x["fim"]),
-               _formula_matmul(f"{w.name} matmul", mm, x["A"], x["B"],
-                               False))
+               _formula_matmul(f"{w.name} matmul", mm, x["A"], x["B"], 0.0))
 
 
 def path_counts():
@@ -1003,7 +1137,8 @@ def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
     tc_calls = {k: sum(w.kernel == k and micro.tensor_core_call(w)
                        for w in workloads) for k in TC_KERNELS}
     if torch.device(device).type == "cuda":
-        want = {k: n * micro.launches_per_call(k) for k, n in calls.items()}
+        want = {k: sum(micro.launches_per_call(k, w.shape) for w in workloads
+                       if w.kernel == k) for k in micro.MODULES}
         if launches != want:
             raise AssertionError(f"launches {launches} are not the calls' "
                                  f"{want}")
@@ -1097,6 +1232,32 @@ def time_ssd_parts(w, x):
                         micro.timed(plain, micro.reps_for(plain)))
         out[name] = dict(t, **micro.bound(*costs[name]))
     micro.restore_counts(saved)
+    return out
+
+
+def time_conv_harts(w, x):
+    """The composite's kernel time with its conv hart staging the whole
+    (31 + F)^2 window (``conv_tile``, the route at F up to
+    ``het_mimd.STREAM_F``) and streaming the input rows
+    (``conv_rows_tile``, forced by setting ``STREAM_F`` to 0), in turns
+    staged, streamed, streamed, staged; each route's two readings and
+    the outputs of both routes held equal."""
+    import torch
+    from repro_torch.kernels import het_mimd as hm
+    from repro_torch.kernels import micro
+    out = {"staged": [], "streamed": []}
+    keep = hm.STREAM_F
+    try:
+        for route in ("staged", "streamed", "streamed", "staged"):
+            hm.STREAM_F = keep if route == "staged" else 0
+            out[route].append(micro.time_kernel(w, x)["ms"])
+        hm.STREAM_F = 0
+        streamed = micro.run_kernel(w, x)[0]
+    finally:
+        hm.STREAM_F = keep
+    staged = micro.run_kernel(w, x)[0]
+    if not torch.equal(streamed, staged):
+        raise AssertionError("the two conv harts differ")
     return out
 
 
@@ -1313,6 +1474,14 @@ def main(argv=None) -> int:
         controls.append(checks.reject_tf32(checks.tf32_product(a, b), a, b))
     print(f"[check] the float32 matmul check rejects TF32 products "
           f"(cuBLAS, TF32 allowed): {json.dumps(controls)}; card: {card}")
+    for name in checks.EDGE_CHECKS:
+        kernel = checks.EDGE_CHECKS[name][0].__name__.rsplit(".", 1)[1]
+        r = checks.check_edge(rng, name, device)
+        into = odd if kernel in odd else err
+        into[kernel] = max(into[kernel], r["max_abs_err"])
+        print(f"[edge] {name}: equals its plain version (max abs diff "
+              f"{r['max_abs_err']}), {r['launches']} launches of "
+              f"{kernel}; card: {card}")
 
     inputs = {}
 
@@ -1320,8 +1489,8 @@ def main(argv=None) -> int:
 
     # 3. slice 1 on the card -----------------------------------------------
     fv.launch_count = kd.launch_count = kw.launch_count = 0
-    _, records = run_slice(device, rng,
-                           log=lambda m: print(f"{m}; card: {card}"))
+    be_off, records = run_slice(device, rng,
+                                log=lambda m: print(f"{m}; card: {card}"))
     launches = {"kvi_walk": kw.launch_count}
     walked = sum(r["walk_launches"] for r in records)
     if fv.launch_count or kd.launch_count:
@@ -1353,6 +1522,18 @@ def main(argv=None) -> int:
                         log=lambda m: print(f"{m}; card: {card}"))
 
     stamp("serve")
+
+    # 3v. slice 1 under verify=True ---------------------------------------
+    kw.launch_count = 0
+    verified = run_verify(device, rng, be_off, {
+        r["phase"]: r["warm_wall_s"] for r in records},
+        log=lambda m: print(f"{m}; card: {card}"))
+    launches["kvi_walk_verified"] = kw.launch_count
+    if kw.launch_count != 2 * sum(r["walk_launches"] for r in verified):
+        raise AssertionError(f"phase 3v: {kw.launch_count} kvi_walk "
+                             f"launches")
+
+    stamp("slice 1 verified")
 
     # 4. slices 2 and 3 on the card ----------------------------------------
     paths = {}
@@ -1390,7 +1571,12 @@ def main(argv=None) -> int:
                              serving=dict(
                                  launches=serving["walk_launches"],
                                  device_ms_by_bucket=serving[
-                                     "device_ms_by_bucket"]))
+                                     "device_ms_by_bucket"]),
+                             verified=dict(
+                                 launches=launches["kvi_walk_verified"],
+                                 analyzer_host_s={
+                                     r["phase"]: r["analyzer_host_s"]
+                                     for r in verified}))
     by_kernel = {k: {} for k in micro.MODULES}
     for w in micro.CARD:
         x = inputs.pop(w.name)
@@ -1401,6 +1587,10 @@ def main(argv=None) -> int:
             ssd_times = time_ssd_parts(w, x)
             print(f"[time] {w.name} by kernel: {json.dumps(ssd_times)}; "
                   f"card: {card}")
+        if w.name == SHOWN["het_mimd"]:
+            t["conv_hart"] = time_conv_harts(w, x)
+            print(f"[time] {w.name} conv hart, staged window vs streamed "
+                  f"rows: {json.dumps(t['conv_hart'])}; card: {card}")
         del x
         torch.cuda.empty_cache()
     for k, ws in by_kernel.items():
@@ -1408,7 +1598,7 @@ def main(argv=None) -> int:
             name: {key: t[key] for key in (
                 "ms", "call_ms", "plain_ms", "library_ms", "library_kernel",
                 "bound_ms", "bound_by", "path", "glue_ms", "glue_call_ms",
-                "device_ms_by") if key in t}
+                "device_ms_by", "conv_hart") if key in t}
             for name, t in ws.items()})
     # the SSD scan stands as its three kernels, each with the whole call
     # beside it
@@ -1431,7 +1621,7 @@ def main(argv=None) -> int:
                                         "plain_call_ms", "library_call_ms",
                                         "shape")})
         for extra in ("kvred", "workloads", "scan", "also_replaces",
-                      "serving"):
+                      "serving", "verified"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in paths:

@@ -89,7 +89,7 @@ int launch(const int64_t* rec, int n_ops, int n_in, int n_out, const void* src,
 // input window k of row r starts at src + r * src_stride + in_col[k],
 // output window k at dst + r * dst_stride + out_col[k]. in_col / out_col
 // are host arrays of n_in / n_out offsets (passed to the kernel by
-// value). dtype: 0 int8, 1 int16, 2 int32. Returns cudaGetLastError()
+// value). dtype: 0 int8, 1 int16, 2 int32, 3 uint8. Returns cudaGetLastError()
 // after the launch (0 on success); launches nothing when rows * n == 0.
 extern "C" int fused_vops_launch(int dtype, const int64_t* rec, int n_ops, int n_in,
                                  int n_out, const void* src, int64_t src_stride, void* dst,
@@ -109,6 +109,7 @@ extern "C" int fused_vops_launch(int dtype, const int64_t* rec, int n_ops, int n
     case 0: return launch<int8_t>(rec, n_ops, n_in, n_out, src, src_stride, dst, dst_stride, win, rows, n, threads, s);
     case 1: return launch<int16_t>(rec, n_ops, n_in, n_out, src, src_stride, dst, dst_stride, win, rows, n, threads, s);
     case 2: return launch<int32_t>(rec, n_ops, n_in, n_out, src, src_stride, dst, dst_stride, win, rows, n, threads, s);
+    case 3: return launch<uint8_t>(rec, n_ops, n_in, n_out, src, src_stride, dst, dst_stride, win, rows, n, threads, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

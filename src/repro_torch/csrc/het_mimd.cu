@@ -29,7 +29,10 @@
 // blocks fit an SM) and one dynamic shared-memory size (the largest any
 // branch needs), so the card schedules blocks of the three programs side
 // by side on its SMs: the het-MIMD scheme's shared engine with dedicated
-// scratchpads.
+// scratchpads. The conv hart stages its tile's whole (31 + F)^2 window
+// (conv_tile) for filters up to STREAM_F (het_mimd.py) and streams the
+// input rows through shared memory above it (conv_rows_tile: shared
+// memory linear in F, so any F the reference takes); `streamed` picks.
 
 #include "spm_tiles.cuh"
 
@@ -39,7 +42,8 @@ namespace {
 constexpr int kMmRows = 64, kMmSlab = 32;
 
 struct Mm { const float* a; const float* b; float* c; int64_t M, K, N; };
-struct Conv { const float* img; const float* filt; float* out; int64_t H, W; int F; };
+struct Conv { const float* img; const float* filt; float* out; int64_t H, W; int F;
+              int streamed; };
 struct Fft { const float* re; const float* im; const float* tw; float* ore; float* oim;
              int64_t B; int log2n; unsigned plan; int rows; };
 
@@ -50,8 +54,12 @@ het_mimd_kernel(Mm mm, Conv cv, Fft ft, int64_t mm_tiles, int64_t conv_tiles) {
   if (t < mm_tiles) {                                     // hart 2: matmul
     spm::matmul_tile<kMmRows, kMmSlab>(mm.a, mm.b, mm.c, mm.M, mm.N, mm.K, t, smem);
   } else if (t < mm_tiles + conv_tiles) {                 // hart 0: conv2d
-    spm::conv_tile<float, float>(cv.img, cv.H + cv.F - 1, cv.W + cv.F - 1, cv.filt, cv.F,
-                                 cv.out, cv.H, cv.W, 0, 0, 0, t - mm_tiles, smem);
+    if (cv.streamed)
+      spm::conv_rows_tile(cv.img, cv.W + cv.F - 1, cv.filt, cv.F, cv.out, cv.H, cv.W,
+                          t - mm_tiles, smem);
+    else
+      spm::conv_tile<float, float>(cv.img, cv.H + cv.F - 1, cv.W + cv.F - 1, cv.filt, cv.F,
+                                   cv.out, cv.H, cv.W, 0, 0, 0, t - mm_tiles, smem);
   } else {                                                // hart 1: FFT
     const int64_t tile = t - mm_tiles - conv_tiles;         // one tile a block
     spm::fft_tiles_run(ft.re, ft.im, ft.tw, ft.ore, ft.oim, ft.B, ft.log2n, ft.plan, ft.rows,
@@ -62,14 +70,16 @@ het_mimd_kernel(Mm mm, Conv cv, Fft ft, int64_t mm_tiles, int64_t conv_tiles) {
 }  // namespace
 
 // conv [H, W] = valid correlation of img [H + F - 1, W + F - 1] with filt
-// [F, F]; (ore, oim) = FFT of fre / fim [nb, 2^log2n] with twiddles tw,
+// [F, F] (streamed: the conv hart streams input rows, else it stages the
+// whole window); (ore, oim) = FFT of fre / fim [nb, 2^log2n] with twiddles tw,
 // pass plan `plan` and `rows` rows a block (as spm_fft_launch takes
 // them; ore and oim 16-byte aligned); c [M, N] = a [M, K] @ b [K, N].
 // All float32, row-major. Returns cudaGetLastError() after the launch (0
 // on success), or cudaErrorInvalidValue for what it does not take;
 // launches nothing when all three parts are empty.
-extern "C" int het_mimd_launch(const float* img, const float* filt, int F, float* conv,
-                               int64_t H, int64_t W, const float* fre, const float* fim,
+extern "C" int het_mimd_launch(const float* img, const float* filt, int F, int streamed,
+                               float* conv, int64_t H, int64_t W, const float* fre,
+                               const float* fim,
                                const float* tw, float* ore, float* oim, int64_t nb, int log2n,
                                unsigned plan, int rows, const float* a, const float* b,
                                float* c, int64_t M, int64_t K, int64_t N, void* stream) {
@@ -83,13 +93,15 @@ extern "C" int het_mimd_launch(const float* img, const float* filt, int F, float
   if (tiles == 0) return 0;
   if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
   size_t smem = mt ? spm::MmTile<kMmRows, kMmSlab>::kSmemBytes : 0;
-  if (ct && spm::conv_smem_bytes(F) > smem) smem = spm::conv_smem_bytes(F);
+  const size_t conv_smem = streamed ? spm::conv_rows_smem_bytes(F) : spm::conv_smem_bytes(F);
+  if (ct && conv_smem > smem) smem = conv_smem;
+  if (smem > spm::kMaxSmem) return (int)cudaErrorInvalidValue;
   if (ft && spm::fft_smem_bytes(1 << log2n, rows) > smem)
     smem = spm::fft_smem_bytes(1 << log2n, rows);
   const int rc = spm::allow_smem(het_mimd_kernel, smem);
   if (rc != 0) return rc;
   het_mimd_kernel<<<(unsigned)tiles, spm::kThreads, smem, (cudaStream_t)stream>>>(
-      Mm{a, b, c, M, K, N}, Conv{img, filt, conv, H, W, F},
+      Mm{a, b, c, M, K, N}, Conv{img, filt, conv, H, W, F, streamed},
       Fft{fre, fim, tw, ore, oim, nb, log2n, plan, rows}, mt, ct);
   return (int)cudaGetLastError();
 }

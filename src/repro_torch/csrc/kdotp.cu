@@ -19,7 +19,8 @@
 // shared memory by thread 0. No atomics, so integer results are exact
 // and the float summation order is the same in every run. Integers
 // accumulate in uint64_t, which is bit-identical to numpy's int64 sum in
-// the oracle (repro/core/mfu.py); the flush then either shifts the
+// the oracle (repro/core/mfu.py), uint8 widening without sign (the
+// reference's astype(int32)); the flush then either shifts the
 // 64-bit sum (oracle mode, what the KVI backend uses) or wraps to int32
 // first and shifts after (the reference Pallas kernel's order, used by
 // the public kdotp / kdotpps / kvred). Shift counts at or above the
@@ -33,7 +34,7 @@
 
 namespace {
 
-enum Dtype { I8 = 0, I16 = 1, I32 = 2, F32 = 3 };
+enum Dtype { I8 = 0, I16 = 1, I32 = 2, F32 = 3, U8 = 4 };
 constexpr int kMaxThreads = 1024;
 
 template <typename T> struct AccOf { using type = uint64_t; };
@@ -87,6 +88,7 @@ int launch_int(int out_dtype, const void* a, const void* b, int64_t a_stride,
     case I8: return launch<Tin, int8_t>(a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, stream);
     case I16: return launch<Tin, int16_t>(a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, stream);
     case I32: return launch<Tin, int32_t>(a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, stream);
+    case U8: return launch<Tin, uint8_t>(a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -108,6 +110,7 @@ extern "C" int kdotp_rows(int in_dtype, int out_dtype, const void* a, const void
     case I8: return launch_int<int8_t>(out_dtype, a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, s);
     case I16: return launch_int<int16_t>(out_dtype, a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, s);
     case I32: return launch_int<int32_t>(out_dtype, a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, s);
+    case U8: return launch_int<uint8_t>(out_dtype, a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, s);
     case F32:
       if (out_dtype != F32) return (int)cudaErrorInvalidValue;
       return launch<float, float>(a, b, a_stride, b_stride, out, out_stride, rows, n, post, scalar, mode, threads, s);

@@ -7,8 +7,11 @@
 // in C++) and truncate to the element width; immediates are int64,
 // wrapped into add and mul and compared exactly by ksvslt; a shift count
 // at or above the element width gives the sign fill (ksrav) or 0
-// (ksrlv), where C++ would leave it undefined. Reductions accumulate
-// integers in uint64_t, bit-identical to numpy's int64 sum in the oracle.
+// (ksrlv), where C++ would leave it undefined. uint8 elements (the
+// intrinsics' uint8 tensors, as the reference's jnp ops read them) compare
+// and widen without sign, and ksrav shifts them logically: a count at or
+// above 8 gives 0. Reductions accumulate integers in uint64_t,
+// bit-identical to numpy's int64 sum in the oracle.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +34,7 @@ template <typename T> struct Unsigned;
 template <> struct Unsigned<int8_t> { using type = uint8_t; };
 template <> struct Unsigned<int16_t> { using type = uint16_t; };
 template <> struct Unsigned<int32_t> { using type = uint32_t; };
+template <> struct Unsigned<uint8_t> { using type = uint8_t; };
 
 template <typename T>
 __device__ __forceinline__ T apply_op(int op, T a, T b, int64_t imm) {
@@ -43,7 +47,10 @@ __device__ __forceinline__ T apply_op(int op, T a, T b, int64_t imm) {
     case KSVADDSC: return (T)(U)((uint64_t)(int64_t)a + (uint64_t)imm);
     case KSVMULSC: return (T)(U)((uint64_t)(int64_t)a * (uint64_t)imm);
     case KSRLV: return (uint64_t)imm >= kBits ? T(0) : (T)(U)((U)a >> (int)imm);
-    case KSRAV: return (T)(a >> ((uint64_t)imm >= kBits ? (int)kBits - 1 : (int)imm));
+    case KSRAV:
+      if (T(-1) > T(0))                             // unsigned: a logical shift
+        return (uint64_t)imm >= kBits ? T(0) : (T)(a >> (int)imm);
+      return (T)(a >> ((uint64_t)imm >= kBits ? (int)kBits - 1 : (int)imm));
     case KRELU: return a > T(0) ? a : T(0);
     case KVSLT: return a < b ? T(1) : T(0);
     case KSVSLT: return (int64_t)a < imm ? T(1) : T(0);
@@ -65,6 +72,7 @@ __device__ __forceinline__ void run_slot_ops(T* slot, const int64_t* prog, int n
 __device__ __forceinline__ uint64_t widen(int8_t v) { return (uint64_t)(int64_t)v; }
 __device__ __forceinline__ uint64_t widen(int16_t v) { return (uint64_t)(int64_t)v; }
 __device__ __forceinline__ uint64_t widen(int32_t v) { return (uint64_t)(int64_t)v; }
+__device__ __forceinline__ uint64_t widen(uint8_t v) { return (uint64_t)v; }
 __device__ __forceinline__ float widen(float v) { return v; }
 
 template <typename Acc>

@@ -1,15 +1,21 @@
 // Dense matrix product C[M, N] = A[M, K] @ B[K, N], two kernels picked by
-// the operand type:
-// - bf16 and int8 run on the tensor cores (spm_matmul_kernel_wgmma):
-//   bf16 accumulates in float32 and stores float32 or bf16 (rounded to
-//   nearest even); int8 accumulates in a wrapping 32-bit integer
-//   (wgmma .s32.s8.s8 without .satfinite) and stores int32;
-// - float32 runs on the CUDA cores (spm_matmul_kernel, the tile routine
+// the operand type, each storing any output type of the reference (XLA's
+// converts, spm_tiles.cuh store_out: floats to nearest even, a float sum
+// into an integer type saturated and truncated with NaN to 0, an int32
+// sum into a narrower integer wrapped):
+// - bf16, float16 and int8 run on the tensor cores
+//   (spm_matmul_kernel_wgmma): bf16 and float16 accumulate in float32;
+//   int8 accumulates in a wrapping 32-bit integer (wgmma .s32.s8.s8
+//   without .satfinite);
+// - float32, int32, int16 and uint8 run on the CUDA cores
+//   (spm_matmul_kernel, the tile routine
 //   of spm_tiles.cuh, which the het-MIMD composite's matmul runs too:
 //   here 128 x 64 tiles, 8 x 8 outputs a thread fed by float4 reads, the
 //   block's two halves splitting K, K slabs of 16 through a three-stage
 //   cp.async ring), one FMA per term: float32 on the tensor cores would
-//   be TF32, which the checks refuse.
+//   be TF32, which the checks refuse. Integer operands are converted to
+//   float32 as they are loaded (int32 rounded to nearest even), so the
+//   sum is the reference's float32 accumulation of them.
 //
 // Replaces the TPU kernel repro/kernels/spm_matmul.py::_matmul_kernel
 // (a (M/bm, N/bn, K/bk) grid that carries a VMEM accumulator across the
@@ -53,17 +59,20 @@
 
 namespace {
 
-enum Dtype { F32 = 0, BF16 = 1, I8 = 2, I32 = 3 };
+constexpr int F32 = spm::kMmF32, BF16 = spm::kMmBF16, I8 = spm::kMmI8, I32 = spm::kMmI32,
+              F16 = spm::kMmF16, I16 = spm::kMmI16, U8 = spm::kMmU8;
 
 // ---- float32 on the CUDA cores ---------------------------------------------
 
 // 128 x 64 tiles (512 at 2048^2), K slabs of 16
 constexpr int kF32Rows = 128, kF32Slab = 16;
 
+template <typename Tin>
 __global__ void __launch_bounds__(spm::kThreads, 2)
-spm_matmul_kernel(const float* a, const float* b, float* c, int64_t M, int64_t N, int64_t K) {
+spm_matmul_kernel(const Tin* a, const Tin* b, void* c, int64_t M, int64_t N, int64_t K,
+                  int out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  spm::matmul_tile<kF32Rows, kF32Slab>(a, b, c, M, N, K, blockIdx.x, smem);
+  spm::matmul_tile<kF32Rows, kF32Slab, Tin>(a, b, c, M, N, K, blockIdx.x, smem, out);
 }
 
 // ---- bf16 and int8 on the tensor cores ---------------------------------------
@@ -155,14 +164,25 @@ __device__ __forceinline__ void pin(int32_t (&d)[64]) {
             "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
             "%62, %63}"
 
-// d += A (64 x 16, K-major) @ B (16 x 128, N-major: the transpose bit)
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
-      ", %64, %65, p, 1, 1, 0, 1;\n}"
-      : ACC64(F_)
-      : "l"(da), "l"(db), "r"(1));
+// d += A (64 x 16, K-major) @ B (16 x 128, N-major: the transpose bit),
+// bf16 or (F16) float16 operands
+template <bool F16>
+__device__ __forceinline__ void wgmma_16(float (&d)[64], uint64_t da, uint64_t db) {
+  if constexpr (F16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " D64
+        ", %64, %65, p, 1, 1, 0, 1;\n}"
+        : ACC64(F_)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " D64
+        ", %64, %65, p, 1, 1, 0, 1;\n}"
+        : ACC64(F_)
+        : "l"(da), "l"(db), "r"(1));
+  }
 }
 // d += A (64 x 32) @ B (32 x 128), both K-major; the s32 sum wraps
 __device__ __forceinline__ void wgmma_s8(int32_t (&d)[64], uint64_t da, uint64_t db) {
@@ -173,9 +193,6 @@ __device__ __forceinline__ void wgmma_s8(int32_t (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void store1(int32_t* p, int32_t x) { *p = x; }
 // two neighbours at an even column of an even-width row (aligned)
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -187,12 +204,14 @@ __device__ __forceinline__ void store2(int32_t* p, int32_t x, int32_t y) {
   *reinterpret_cast<int2*>(p) = make_int2(x, y);
 }
 
-// INT8: int8 operands, B K-major; else bf16, B N-major
-template <bool INT8, typename Tout>
+// KIND I8: int8 operands, B K-major; BF16 / F16: B N-major. `out` is the
+// output's type code.
+template <int KIND>
 __global__ void __launch_bounds__(kTcThreads, 1)
 spm_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
-                        const __grid_constant__ CUtensorMap map_b, Tout* __restrict__ c,
-                        int M, int N, int n_k) {
+                        const __grid_constant__ CUtensorMap map_b, void* __restrict__ c,
+                        int M, int N, int n_k, int out) {
+  constexpr bool INT8 = KIND == I8;
   using Acc = typename std::conditional<INT8, int32_t, float>::type;
   constexpr int KE = INT8 ? 128 : 64;             // K elements of one stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -251,7 +270,7 @@ spm_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
       } else {
         // N-major: 16 K rows of 128 bytes a step; the next 64 columns
         // (LBO) lie half a stage on, the next 8 K rows (SBO) 1024 bytes
-        wgmma_bf16(d, da, sw128_desc(b + 2048 * kk, kStageBytes / 2, 1024));
+        wgmma_16<KIND == F16>(d, da, sw128_desc(b + 2048 * kk, kStageBytes / 2, 1024));
       }
     }
     wgmma_commit();
@@ -268,7 +287,8 @@ spm_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
   // 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 128 block
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
-  const bool even = (N % 2) == 0;
+  // the kernels' own output types store neighbours as one aligned piece
+  const bool pair = N % 2 == 0 && (INT8 ? out == I32 : out == F32 || out == BF16);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int col = n0 + 8 * j + 2 * (lane % 4);
@@ -277,13 +297,18 @@ spm_matmul_kernel_wgmma(const __grid_constant__ CUtensorMap map_a,
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row >= M) continue;
-      Tout* p = c + (int64_t)row * N + col;
+      const int64_t i = (int64_t)row * N + col;
       const Acc x = d[4 * j + 2 * h], y = d[4 * j + 2 * h + 1];
-      if (even) {
-        store2(p, x, y);
+      if (pair) {
+        if constexpr (INT8)
+          store2(static_cast<int32_t*>(c) + i, x, y);
+        else if (out == F32)
+          store2(static_cast<float*>(c) + i, x, y);
+        else
+          store2(static_cast<__nv_bfloat16*>(c) + i, x, y);
       } else {
-        store1(p, x);
-        if (col + 1 < N) store1(p + 1, y);
+        spm::store_out(c, out, i, x);
+        if (col + 1 < N) spm::store_out(c, out, i + 1, y);
       }
     }
   }
@@ -312,60 +337,78 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a row-major [outer, inner] matrix of 1- or 2-byte elements, boxes of
-// [box_outer][box_inner] with box_inner * size = 128 bytes
-bool make_map(CUtensorMap* map, const void* ptr, bool bytes, int64_t inner, int64_t outer,
+// a row-major [outer, inner] matrix of int8 (kind I8), bf16 or float16
+// elements, boxes of [box_outer][box_inner] with box_inner * size = 128
+// bytes
+bool make_map(CUtensorMap* map, const void* ptr, int kind, int64_t inner, int64_t outer,
               uint32_t box_inner, uint32_t box_outer) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  const bool bytes = kind == I8;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   const cuuint64_t strides[1] = {(cuuint64_t)inner * (bytes ? 1 : 2)};
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUtensorMapDataType type = bytes           ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : kind == F16   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 2,
                 const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool INT8, typename Tout>
+template <int KIND>
 int launch_tc(const CUtensorMap& ma, const CUtensorMap& mb, void* c, int64_t M, int64_t N,
-              int64_t Kp, cudaStream_t stream) {
-  auto kern = spm_matmul_kernel_wgmma<INT8, Tout>;
+              int64_t Kp, int out, cudaStream_t stream) {
+  auto kern = spm_matmul_kernel_wgmma<KIND>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTcSmem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t ke = INT8 ? 128 : 64;
+  const int64_t ke = KIND == I8 ? 128 : 64;
   const dim3 grid((unsigned)((N + BN - 1) / BN), (unsigned)((M + BM - 1) / BM));
-  kern<<<grid, kTcThreads, kTcSmem, stream>>>(ma, mb, (Tout*)c, (int)M, (int)N,
-                                              (int)((Kp + ke - 1) / ke));
+  kern<<<grid, kTcThreads, kTcSmem, stream>>>(ma, mb, c, (int)M, (int)N,
+                                              (int)((Kp + ke - 1) / ke), out);
+  return (int)cudaGetLastError();
+}
+
+template <typename Tin>
+int launch_f32(const void* a, const void* b, void* c, int64_t M, int64_t N, int64_t K, int out,
+               cudaStream_t stream) {
+  constexpr size_t smem = spm::MmTile<kF32Rows, kF32Slab>::kSmemBytes;
+  const int rc = spm::allow_smem(spm_matmul_kernel<Tin>, smem);
+  if (rc != 0) return rc;
+  spm_matmul_kernel<Tin><<<(unsigned)spm::matmul_tiles<kF32Rows>(M, N), spm::kThreads, smem,
+                           stream>>>((const Tin*)a, (const Tin*)b, c, M, N, K, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// float32 c = a @ b on the CUDA cores (in and out dtype codes F32). Returns
-// cudaGetLastError() after the launch (0 on success); launches nothing
-// when M or N is 0.
+// c = a @ b on the CUDA cores: in_dtype F32, I32, I16 or U8 (converted to
+// float32 as loaded), out_dtype any code; a [M, K], b [K, N], c [M, N],
+// row-major. Returns cudaGetLastError() after the launch (0 on success);
+// launches nothing when M or N is 0.
 extern "C" int spm_matmul_launch(int in_dtype, int out_dtype, const void* a, const void* b,
                                  void* c, int64_t M, int64_t N, int64_t K, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (in_dtype != F32 || out_dtype != F32) return (int)cudaErrorInvalidValue;
+  if (out_dtype < F32 || out_dtype > U8) return (int)cudaErrorInvalidValue;
   const int64_t tiles = spm::matmul_tiles<kF32Rows>(M, N);
   if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = spm::MmTile<kF32Rows, kF32Slab>::kSmemBytes;
-  const int rc = spm::allow_smem(spm_matmul_kernel, smem);
-  if (rc != 0) return rc;
-  spm_matmul_kernel<<<(unsigned)tiles, spm::kThreads, smem,
-                      (cudaStream_t)stream>>>((const float*)a, (const float*)b, (float*)c, M, N,
-                                              K);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (in_dtype) {
+    case F32: return launch_f32<float>(a, b, c, M, N, K, out_dtype, s);
+    case I32: return launch_f32<int32_t>(a, b, c, M, N, K, out_dtype, s);
+    case I16: return launch_f32<int16_t>(a, b, c, M, N, K, out_dtype, s);
+    case U8: return launch_f32<uint8_t>(a, b, c, M, N, K, out_dtype, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// c [M, N] = a @ b on the tensor cores, for in / out dtype codes (BF16,
-// BF16), (BF16, F32), (I8, I32). a is [M, Kp] row-major; b is [Kp, Nb]
-// for bf16 (Nb >= N, Nb % 8 == 0) and [N, Kp] for int8 (K-major); Kp
-// keeps rows whole 16-byte multiples (Kp % 8 for bf16, Kp % 16 for int8),
+// c [M, N] = a @ b on the tensor cores, in_dtype BF16, F16 or I8, out_dtype
+// any code. a is [M, Kp] row-major; b is [Kp, Nb] for bf16 / float16
+// (Nb >= N, Nb % 8 == 0) and [N, Kp] for int8 (K-major); Kp keeps rows
+// whole 16-byte multiples (Kp % 8 for 16-bit types, Kp % 16 for int8),
 // the pointers are 16-byte aligned and padded entries are zeros. Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for what it does not take (including a tensor map
@@ -375,20 +418,20 @@ extern "C" int spm_matmul_tc_launch(int in_dtype, int out_dtype, const void* a, 
                                     void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const bool int8 = in_dtype == I8;
-  if (int8 ? out_dtype != I32 : (in_dtype != BF16 || (out_dtype != BF16 && out_dtype != F32)))
+  if ((!int8 && in_dtype != BF16 && in_dtype != F16) || out_dtype < F32 || out_dtype > U8)
     return (int)cudaErrorInvalidValue;
   if (Kp <= 0 || Kp % (int8 ? 16 : 8) != 0 || M > INT32_MAX || N > INT32_MAX ||
       Kp > INT32_MAX || (!int8 && (Nb < N || Nb % 8 != 0)) ||
       ((uintptr_t)a | (uintptr_t)b) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
-  const bool ok = int8 ? make_map(&ma, a, true, Kp, M, 128, BM) &&
-                             make_map(&mb, b, true, Kp, N, 128, BN)
-                       : make_map(&ma, a, false, Kp, M, 64, BM) &&
-                             make_map(&mb, b, false, Nb, Kp, 64, 64);
+  const bool ok = int8 ? make_map(&ma, a, I8, Kp, M, 128, BM) &&
+                             make_map(&mb, b, I8, Kp, N, 128, BN)
+                       : make_map(&ma, a, in_dtype, Kp, M, 64, BM) &&
+                             make_map(&mb, b, in_dtype, Nb, Kp, 64, 64);
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (int8) return launch_tc<true, int32_t>(ma, mb, c, M, N, Kp, s);
-  if (out_dtype == BF16) return launch_tc<false, __nv_bfloat16>(ma, mb, c, M, N, Kp, s);
-  return launch_tc<false, float>(ma, mb, c, M, N, Kp, s);
+  if (int8) return launch_tc<I8>(ma, mb, c, M, N, Kp, out_dtype, s);
+  if (in_dtype == F16) return launch_tc<F16>(ma, mb, c, M, N, Kp, out_dtype, s);
+  return launch_tc<BF16>(ma, mb, c, M, N, Kp, out_dtype, s);
 }

@@ -50,8 +50,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace spm {
 
@@ -90,6 +93,7 @@ __device__ __forceinline__ int32_t finish(uint32_t acc, int shift) {
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store(__half* p, float v) { *p = __float2half_rn(v); }
 __device__ __forceinline__ void store(int32_t* p, int32_t v) { *p = v; }
 
 // global -> shared copies that do not wait: `bytes` of `src`, zero-filled
@@ -114,7 +118,51 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// ---- matmul: C[M, N] = A[M, K] @ B[K, N], float32, row-major ----------------
+// ---- output types of a product, and XLA's converts into them ----------------
+
+// dtype codes shared by spm_matmul.cu and its wrapper (spm_matmul.py)
+enum MmType { kMmF32 = 0, kMmBF16 = 1, kMmI8 = 2, kMmI32 = 3, kMmF16 = 4, kMmI16 = 5, kMmU8 = 6 };
+
+// a float into an integer type: NaN gives 0, then saturate and truncate
+// toward zero (cvt.rzi saturates and sends NaN to 0 itself)
+__device__ __forceinline__ int32_t sat_int(float v, float lo, float hi) {
+  return __float2int_rz(fminf(fmaxf(v, lo), hi));
+}
+// element i of c (of type code `out`) = v, converted as XLA converts
+__device__ __forceinline__ void store_out(void* c, int out, int64_t i, float v) {
+  switch (out) {
+    case kMmF32: static_cast<float*>(c)[i] = v; break;
+    case kMmBF16: static_cast<__nv_bfloat16*>(c)[i] = __float2bfloat16_rn(v); break;
+    case kMmF16: static_cast<__half*>(c)[i] = __float2half_rn(v); break;
+    case kMmI32: static_cast<int32_t*>(c)[i] = __float2int_rz(v); break;
+    case kMmI16: static_cast<int16_t*>(c)[i] = (int16_t)sat_int(v, -32768.f, 32767.f); break;
+    case kMmI8: static_cast<int8_t*>(c)[i] = (int8_t)sat_int(v, -128.f, 127.f); break;
+    default: static_cast<uint8_t*>(c)[i] = (uint8_t)sat_int(v, 0.f, 255.f); break;
+  }
+}
+// an int32 sum: floats through float32 (each conversion rounded to
+// nearest even), integers wrapped to their width
+__device__ __forceinline__ void store_out(void* c, int out, int64_t i, int32_t v) {
+  switch (out) {
+    case kMmI32: static_cast<int32_t*>(c)[i] = v; break;
+    case kMmI16: static_cast<int16_t*>(c)[i] = (int16_t)v; break;
+    case kMmI8: static_cast<int8_t*>(c)[i] = (int8_t)v; break;
+    case kMmU8: static_cast<uint8_t*>(c)[i] = (uint8_t)v; break;
+    default: store_out(c, out, i, __int2float_rn(v)); break;
+  }
+}
+
+// an operand element in float32
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int32_t x) { return __int2float_rn(x); }
+__device__ __forceinline__ float to_f32(int16_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(uint8_t x) { return (float)x; }
+
+// ---- matmul: C[M, N] = A[M, K] @ B[K, N], float32 arithmetic, row-major -----
+//
+// A and B are float32, or int32 / int16 / uint8 converted to float32 as
+// they are loaded (int32 rounded to nearest even, as XLA converts them);
+// C is float32, or any matmul output type (store_out: XLA's converts).
 //
 // A BM x 64 output tile per block, BM = 128 or 64. The block's 256
 // threads split K in two groups of 128, the even and the odd k of every
@@ -134,6 +182,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // steps by 256 / BK rows. B's BK x 64 slab is stored as it is: 16-byte
 // copies when N % 4 == 0 and B is 16-byte aligned, else 4-byte ones.
 // Copies past an edge zero-fill, so edges cost no branch in the FMAs.
+// Integer operands cannot take cp.async (it copies bytes, and each
+// element must be converted): their slabs are plain converting loads and
+// stores into the same ring, which the barrier a slab orders as well.
 
 constexpr int kMmBN = 64, kMmStages = 3;
 
@@ -150,18 +201,19 @@ __host__ __device__ inline int64_t matmul_tiles(int64_t M, int64_t N) {
   return ((M + BM - 1) / BM) * ((N + kMmBN - 1) / kMmBN);
 }
 
-template <int BM, int BK>
-__device__ void matmul_tile(const float* __restrict__ a, const float* __restrict__ b,
-                            float* __restrict__ c, int64_t M, int64_t N, int64_t K,
-                            int64_t tile, unsigned char* smem) {
+template <int BM, int BK, typename Tin = float>
+__device__ void matmul_tile(const Tin* __restrict__ a, const Tin* __restrict__ b,
+                            void* __restrict__ c, int64_t M, int64_t N, int64_t K,
+                            int64_t tile, unsigned char* smem, int out = kMmF32) {
+  constexpr bool kF32 = std::is_same<Tin, float>::value;
   constexpr int kAs = MmTile<BM, BK>::kAs, kStage = MmTile<BM, BK>::kStage, RI = BM / 16;
   float* st = reinterpret_cast<float*>(smem);    // stages of [BK][BM + 8] A, [BK][BN] B
   const int64_t tiles_n = (N + kMmBN - 1) / kMmBN;
   const int64_t m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * kMmBN;
   const int tid = threadIdx.x, kg = tid / 128, t = tid % 128, lane = t % 32;
   const int ty = (t / 32) * 4 + lane / 8, tx = lane % 8;
-  const bool vec_b = N % 4 == 0 && (uintptr_t)b % 16 == 0;
-  const bool vec_c = N % 4 == 0 && (uintptr_t)c % 16 == 0;
+  const bool vec_b = kF32 && N % 4 == 0 && (uintptr_t)b % 16 == 0;
+  const bool vec_c = out == kMmF32 && N % 4 == 0 && (uintptr_t)c % 16 == 0;
 
   // this thread's copies: A's k = ak of rows ar + kAStep i (lanes: 4 k
   // of 8 rows); B's row bk + kThreads / 16 i, columns bc .. bc + 3
@@ -172,29 +224,39 @@ __device__ void matmul_tile(const float* __restrict__ a, const float* __restrict
   const int ar = ((tid >> 2) & 7) | (tid / (8 * BK)) << 3;
   const int bk = tid / (kMmBN / 4), bc = tid % (kMmBN / 4) * 4;
   const int64_t a_rows = M - m0 - ar;             // rows of this thread's A copies in range
-  const float* pa = a + (m0 + ar) * K + ak;      // advanced one slab at a time
-  const float* pb = b + n0;
+  const Tin* pa = a + (m0 + ar) * K + ak;        // advanced one slab at a time
+  const Tin* pb = b + n0;
   auto copy_slab = [&](int64_t k0, float* As) {
     float* Bs = As + BK * kAs;
     const bool ka = k0 + ak < K;
 #pragma unroll
     for (int i = 0; i < BM * BK / kThreads; ++i) {
       const bool in = ka && kAStep * i < a_rows;
-      cp_async4(As + ak * kAs + ar + kAStep * i, in ? pa + kAStep * i * K : a, in);
+      if constexpr (kF32)
+        cp_async4(As + ak * kAs + ar + kAStep * i, in ? pa + kAStep * i * K : a, in);
+      else
+        As[ak * kAs + ar + kAStep * i] = in ? to_f32(pa[kAStep * i * K]) : 0.f;
     }
-    if (vec_b) {                                  // a piece is whole or outside: N % 4 == 0
+    if constexpr (!kF32) {
+#pragma unroll
+      for (int i = 0; i < BK * kMmBN / kThreads; ++i) {
+        const int e = tid + kThreads * i, kk = e / kMmBN, cc = e % kMmBN;
+        const bool in = k0 + kk < K && n0 + cc < N;
+        Bs[kk * kMmBN + cc] = in ? to_f32(pb[kk * N + cc]) : 0.f;
+      }
+    } else if (vec_b) {                                  // a piece is whole or outside: N % 4 == 0
 #pragma unroll
       for (int i = 0; i < BK * kMmBN / 4 / kThreads; ++i) {
         const int kk = bk + kThreads / (kMmBN / 4) * i;
         const bool in = k0 + kk < K && n0 + bc < N;
-        cp_async16(Bs + kk * kMmBN + bc, in ? pb + kk * N + bc : b, in);
+        cp_async16(Bs + kk * kMmBN + bc, in ? (const float*)pb + kk * N + bc : (const float*)b, in);
       }
     } else {
 #pragma unroll
       for (int i = 0; i < BK * kMmBN / kThreads; ++i) {
         const int e = tid + kThreads * i, kk = e / kMmBN, cc = e % kMmBN;
         const bool in = k0 + kk < K && n0 + cc < N;
-        cp_async4(Bs + kk * kMmBN + cc, in ? pb + kk * N + cc : b, in);
+        cp_async4(Bs + kk * kMmBN + cc, in ? (const float*)pb + kk * N + cc : (const float*)b, in);
       }
     }
     pa += BK;
@@ -260,13 +322,13 @@ __device__ void matmul_tile(const float* __restrict__ a, const float* __restrict
       for (int j = 0; j < 4; ++j)
         v[j] = __fadd_rn(acc[i][4 * h + j], st[(i * 8 + 4 * h + j) * 128 + t]);
       if (gm >= M || gn >= N) continue;
-      float* out = c + gm * N + gn;
       if (vec_c) {
-        *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(static_cast<float*>(c) + gm * N + gn) =
+            make_float4(v[0], v[1], v[2], v[3]);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (gn + j < N) out[j] = v[j];
+          if (gn + j < N) store_out(c, out, gm * N + gn + j, v[j]);
       }
     }
   }
@@ -329,6 +391,60 @@ __device__ void conv_tile(const Tin* __restrict__ img, int64_t H_in, int64_t W_i
   for (int i = 0; i < 4; ++i) {
     const int64_t r = r0 + ty + 8 * i, c = c0 + tx;
     if (r < H && c < W) store(out + r * W + c, finish(acc[i], shift));
+  }
+}
+
+// ---- conv2d over streamed rows: the het-MIMD conv hart at any F ------------
+//
+// The same 32 x 32 output tile and thread map as conv_tile, for a valid
+// float32 correlation of a pre-padded image, without staging the (31 +
+// F)^2 window: the block walks the tile's 31 + F input rows once, in
+// order (the streamed-row scheme of spm_conv2d.cu). Input row r, 31 + F
+// wide, sits in shared memory while every output row o of the tile with
+// 0 <= r - o < F adds its taps (r - o, 0 .. F - 1); the filter rows in
+// use, r - 31 .. r, sit in a ring of 32 rows, row fr in slot fr % 32.
+// Each output thus takes its taps in (fr, fc) order with a rounded
+// product and a rounded sum each, as conv_tile and the plain version do:
+// the two routines agree bit for bit. Shared memory is linear in F,
+// (32 F + 31 + F) words: 21 KB at F = 161, F up to about 1700 within a
+// block's 227 KB. Two barriers a row: the cost over conv_tile at small F.
+
+__host__ __device__ inline size_t conv_rows_smem_bytes(int F) {
+  return ((size_t)kConvT * F + kConvT + F - 1) * 4;
+}
+
+__device__ void conv_rows_tile(const float* __restrict__ img, int64_t W_in,
+                               const float* __restrict__ filt, int F, float* __restrict__ out,
+                               int64_t H, int64_t W, int64_t tile, unsigned char* smem) {
+  const int SW = kConvT + F - 1;
+  float* seg = reinterpret_cast<float*>(smem);     // [SW] one input row
+  const int64_t H_in = H + F - 1;
+  const int64_t tiles_w = (W + kConvT - 1) / kConvT;
+  const int64_t r0 = (tile / tiles_w) * kConvT, c0 = (tile % tiles_w) * kConvT;
+  const int tid = threadIdx.x, tx = tid % kConvT, ty = tid / kConvT;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r = 0; r < SW; ++r) {
+    __syncthreads();                             // row r - 1's readers are done
+    const int64_t gr = r0 + r;
+    for (int e = tid; e < SW; e += kThreads) {
+      const int64_t gc = c0 + e;
+      seg[e] = gr < H_in && gc < W_in ? __ldg(img + gr * W_in + gc) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int fr = r - (ty + 8 * i);
+      if (fr < 0 || fr >= F) continue;
+      const float* w = filt + (int64_t)fr * F;
+      float a = acc[i];
+      for (int fc = 0; fc < F; ++fc) a = mul_add(a, seg[tx + fc], __ldg(w + fc));
+      acc[i] = a;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t r = r0 + ty + 8 * i, c = c0 + tx;
+    if (r < H && c < W) out[r * W + c] = acc[i];
   }
 }
 

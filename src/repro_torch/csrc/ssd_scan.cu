@@ -6,7 +6,7 @@
 //         + exp(cum_i) (C_i h_in[c])                                  (inter)
 //   h_in[c + 1] = exp(cum_last) h_in[c] + s_c,
 //   s_c   = sum_j (B_j exp(cum_last - cum_j))^T xdt_j                  (chunk state)
-// x [Bz, S, H, P] (float32 or bf16), da and dt [Bz, S, H], B and C [Bz, S,
+// x [Bz, S, H, P] (float32, bf16 or float16), da and dt [Bz, S, H], B and C [Bz, S,
 // H, N] head-broadcast (float32); y in x's type, the final state [Bz, H, N,
 // P] float32. All arithmetic float32.
 //
@@ -44,13 +44,19 @@
 // which reach 32 banks); kernel 3 holds its 64 x N tile of C whole and
 // streams B and h_in, and a float32 x tile arrives by cp.async during the
 // scores before it (dt_j is folded into the scores). x staged through
-// registers (kernel 1; bf16 x in kernel 3) is loaded a slab ahead and
-// used only after the slab's FMAs, so no warp waits on it. Shared memory
-// does not grow with P (tiled in the grid) and grows with N only through
-// that C tile: 37888 and 97792 bytes at the mamba2 row, so two blocks or
-// more fit an SM.
+// registers (kernel 1; bf16 and float16 x in kernel 3) is loaded a slab
+// ahead and used only after the slab's FMAs, so no warp waits on it.
+// Shared memory does not grow with P (tiled in the grid); kernel 1's does
+// not grow with N (tiled in the grid too), kernel 3's only through that C
+// tile: 37888 and 97792 bytes at the mamba2 row, so two blocks or more
+// fit an SM. Where the whole C tile would pass a block's 227 KB (N above
+// 608 at cs 256), kernel 3 streams C too (kStreamC): each slab of h_in or
+// B arrives with the matching 32 n of C in a second ring, so shared
+// memory is 89 KB at cs 256 whatever N, at the price of reading the C
+// tile again for every column tile.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,20 +74,29 @@ constexpr int kK = 32;              // K slab
 constexpr int kStages = 3;          // kernel 3's cp.async ring
 constexpr int kPassUnroll = 8;      // chunk states kernel 2 loads at once
 
-enum Dtype { F32 = 0, BF16 = 1 };
+enum Dtype { F32 = 0, BF16 = 1, F16 = 2 };
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int n_pad(int N) { return ceil_div(N, kK) * kK; }
 
 size_t state_smem(int cs) { return sizeof(float) * (4 * (size_t)kK * kLd + 3 * (size_t)cs); }
-size_t scan_smem(int N, int cs) {
+// kernel 3 holds the row tile's C whole (n_pad(N) rows) unless that passes
+// a block's shared memory; then C streams through a ring like B's
+size_t scan_smem_resident(int N, int cs) {
   return sizeof(float) * ((size_t)n_pad(N) * kLd + kStages * (size_t)kK * kLd +
                           2 * (size_t)kT * kLd + 2 * (size_t)cs);
+}
+bool scan_streams_c(int N, int cs) { return scan_smem_resident(N, cs) > spm::kMaxSmem; }
+size_t scan_smem(int N, int cs) {
+  if (!scan_streams_c(N, cs)) return scan_smem_resident(N, cs);
+  return sizeof(float) * (2 * kStages * (size_t)kK * kLd + 2 * (size_t)kT * kLd +
+                          2 * (size_t)cs);
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
 // row r of the thread's 8 x 4 block
 __device__ __forceinline__ int row_of(int ty, int r) { return (r < 4 ? 0 : 32) + 4 * ty + (r & 3); }
@@ -327,7 +342,7 @@ ssd_state_pass_kernel(float* __restrict__ states, const float* __restrict__ cum,
 
 // ---- 3. y ----------------------------------------------------------------------
 
-template <typename Tx>
+template <typename Tx, bool kStreamC>
 __global__ void __launch_bounds__(kThr)
 ssd_chunk_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ Bm, const float* __restrict__ Cm,
@@ -336,8 +351,10 @@ ssd_chunk_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
   constexpr bool kF32 = std::is_same<Tx, float>::value;
   extern __shared__ __align__(16) float smem[];
   const int NK = n_pad(N), nslab = NK / kK;
-  float* ct = smem;                        // [NK][kLd]: C of the row tile, n-major
-  float* ring = ct + NK * kLd;             // kStages x [kK][kLd]: slabs of h_in[c] or B (n-major)
+  // [NK][kLd]: C of the row tile, n-major; streamed: kStages x [kK][kLd],
+  // the slab of C matching each slab of the ring
+  float* ct = smem;
+  float* ring = ct + (kStreamC ? kStages * kK : NK) * kLd;   // kStages x [kK][kLd]: slabs of h_in[c] or B (n-major)
   float* ss = ring + kStages * kK * kLd;   // [kT][kLd]: masked, decayed scores times dt_j
   float* xs = ss + kT * kLd;               // [kT][kLd]: x of the column tile, j-major
   float* ccum = xs + kT * kLd;             // [cs] the chunk's cum (rows up to the tile's end)
@@ -364,12 +381,19 @@ ssd_chunk_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
   const int total = nslab * (it + 2);
   auto issue = [&](int s) {
     float* dst = ring + (s % kStages) * kK * kLd;
+    const int k0 = (s < nslab ? s : (s - nslab) % nslab) * kK;
     if (s < nslab) {
-      copy_rows<kK>(dst, hc, P, s * kK, N, p0, P, vec_h);
+      copy_rows<kK>(dst, hc, P, k0, N, p0, P, vec_h);
     } else {
-      const int jt = (s - nslab) / nslab, k0 = (s - nslab) % nslab * kK;
+      const int jt = (s - nslab) / nslab;
       copy_transposed(dst, Bm, row_n, jt * kT, cs, k0, kK, N);
     }
+    if constexpr (kStreamC)
+      copy_transposed(ct + (s % kStages) * kK * kLd, Cm, row_n, i0, cs, k0, kK, N);
+  };
+  // the C slab of stream step s (its k-th 32 n)
+  auto c_slab = [&](int s, int k) {
+    return kStreamC ? ct + (s % kStages) * kK * kLd : ct + k * kK * kLd;
   };
   // a float32 x tile goes straight to shared memory (rows j0.., columns p0..)
   auto issue_x = [&](int j0) {
@@ -378,7 +402,7 @@ ssd_chunk_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
                     vec_x);
   };
 
-  copy_transposed(ct, Cm, row_n, i0, cs, 0, NK, N);
+  if constexpr (!kStreamC) copy_transposed(ct, Cm, row_n, i0, cs, 0, NK, N);
   issue(0);
   spm::cp_async_commit();
   issue(1);
@@ -407,7 +431,7 @@ ssd_chunk_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
   zero(acc);
   for (int k = 0; k < nslab; ++k, ++s) {
     const float* slab = next();
-    tile_fma<kK>(ct + k * kK * kLd, slab, ty, tx, acc);
+    tile_fma<kK>(c_slab(s, k), slab, ty, tx, acc);
   }
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
@@ -424,7 +448,7 @@ ssd_chunk_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
     zero(g);
     for (int k = 0; k < nslab; ++k, ++s) {
       const float* slab = next();
-      tile_fma<kK>(ct + k * kK * kLd, slab, ty, tx, g);
+      tile_fma<kK>(c_slab(s, k), slab, ty, tx, g);
     }
     // every thread is past the previous tile's product: ss is free
 #pragma unroll
@@ -504,7 +528,8 @@ template <typename Tx>
 int launch_scan(const void* x, const float* dt, const float* Bm, const float* Cm,
                 const float* cum, const float* hin, void* y, int64_t Bz, int S, int H, int P,
                 int N, int cs, cudaStream_t st) {
-  auto kern = ssd_chunk_scan_kernel<Tx>;
+  auto kern = scan_streams_c(N, cs) ? ssd_chunk_scan_kernel<Tx, true>
+                                    : ssd_chunk_scan_kernel<Tx, false>;
   const size_t smem = scan_smem(N, cs);
   int err = spm::allow_smem(kern, smem);
   if (err) return err;
@@ -519,7 +544,7 @@ int launch_scan(const void* x, const float* dt, const float* Bm, const float* Cm
 
 // Each launcher returns cudaGetLastError() after its launch (0 on success),
 // or cudaErrorInvalidValue for shapes, types or shared memory it does not
-// take. Every tensor is contiguous; x is F32 or BF16 by `dtype`, the rest
+// take. Every tensor is contiguous; x is F32, BF16 or F16 by `dtype`, the rest
 // float32. Workspaces: cum [Bz, H, S], states [Bz, H, S / cs, N, P].
 
 // 1: states[b, h, c] = s_c and cum, from x, da, dt, B
@@ -537,6 +562,9 @@ extern "C" int ssd_chunk_state_launch(int dtype, const void* x, const void* da, 
   if (dtype == BF16)
     return launch_state<__nv_bfloat16>(x, f(da), f(dt), f(Bm), (float*)states, (float*)cum, Bz,
                                        (int)S, (int)H, (int)P, (int)N, (int)cs, st);
+  if (dtype == F16)
+    return launch_state<__half>(x, f(da), f(dt), f(Bm), (float*)states, (float*)cum, Bz,
+                                (int)S, (int)H, (int)P, (int)N, (int)cs, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -569,5 +597,8 @@ extern "C" int ssd_chunk_scan_launch(int dtype, const void* x, const void* dt, c
   if (dtype == BF16)
     return launch_scan<__nv_bfloat16>(x, f(dt), f(Bm), f(Cm), f(cum), f(hin), y, Bz, (int)S,
                                       (int)H, (int)P, (int)N, (int)cs, st);
+  if (dtype == F16)
+    return launch_scan<__half>(x, f(dt), f(Bm), f(Cm), f(cum), f(hin), y, Bz, (int)S, (int)H,
+                               (int)P, (int)N, (int)cs, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -51,9 +51,10 @@ from repro_torch.kernels import spm_matmul as sm
 from repro_torch.kernels import ssd_scan as ss
 
 _NP = {torch.int8: np.int8, torch.int16: np.int16, torch.int32: np.int32,
-       torch.float32: np.float32}
+       torch.float32: np.float32, torch.uint8: np.uint8}
 U32 = 2.0 ** -24                   # float32 unit roundoff
 BF16_STEP = 2.0 ** -7              # bf16 spacing relative to the value
+F16_STEP = 2.0 ** -10              # float16 spacing relative to the value
 LAMBDA = 4.0                       # standard deviations of one sum's error
 
 
@@ -75,13 +76,14 @@ def random_slot_program(rng: np.random.Generator, n_in: int, n_ops: int,
     ops overwrite an earlier slot, as ``acc = acc + tmp`` does. With
     ``wide_imm`` immediates span int64 (wrapped by add/mul, compared
     exactly by ksvslt); otherwise they fit the element type, which is
-    what the reference Pallas kernel accepts."""
+    what the reference Pallas kernel accepts (uint8: 0 .. 255)."""
     bits = 8 * torch.empty((), dtype=dtype).element_size()
     ops = list(fv.OPCODES)
     ops += [str(o) for o in rng.choice(ops, max(0, n_ops - len(ops)))]
     ops = [ops[i] for i in rng.permutation(len(ops))][:n_ops]
     lo, hi = (-(1 << 40), 1 << 40) if wide_imm else (
-        -(1 << (bits - 1)), 1 << (bits - 1))
+        (0, 1 << bits) if dtype == torch.uint8 else
+        (-(1 << (bits - 1)), 1 << (bits - 1)))
     defined = list(range(n_in))
     n_slots = n_in
     written: List[int] = []
@@ -449,10 +451,27 @@ def random_floats(rng: np.random.Generator, shape, dtype: torch.dtype,
                             ).to(device=device, dtype=dtype)
 
 
+#: operand ranges of the float32-accumulating integer types in the
+#: checks: every partial sum below 2^24 at K up to 2048 (90^2 2048 =
+#: 16 588 800), so exact in any order, and the two implementations must
+#: agree bit for bit
+SMALL_INTS = {torch.int16: (-90, 91), torch.int32: (-90, 91),
+              torch.uint8: (0, 16)}
+
+
+def small_ints(rng, shape, dtype, device) -> torch.Tensor:
+    lo, hi = SMALL_INTS[dtype]
+    return torch.from_numpy(rng.integers(lo, hi, shape).astype(_NP[dtype])
+                            ).to(device)
+
+
 def matmul_operands(rng, M, K, N, dtype, device):
     if dtype == torch.int8:
         return (random_ints(rng, (M, K), dtype, device),
                 random_ints(rng, (K, N), dtype, device))
+    if dtype in SMALL_INTS:
+        return (small_ints(rng, (M, K), dtype, device),
+                small_ints(rng, (K, N), dtype, device))
     return (random_floats(rng, (M, K), dtype, device),
             random_floats(rng, (K, N), dtype, device))
 
@@ -480,20 +499,25 @@ def dot_tolerance(a: torch.Tensor, b: torch.Tensor, sums: int = 2
     return sums * LAMBDA * U32 * (K * (K + 1) / 2) ** 0.5 * t
 
 
+def output_step(dtype: torch.dtype) -> float:
+    """The spacing of a 16-bit float output relative to its value (0 for
+    other types): what rounding the same float32 result may add."""
+    return {torch.bfloat16: BF16_STEP, torch.float16: F16_STEP}.get(dtype, 0.0)
+
+
 def matmul_tolerance(a, b, want) -> torch.Tensor:
-    """:func:`dot_tolerance` for two implementations, plus one bf16 step
-    for a bf16 output."""
-    tol = dot_tolerance(a, b)
-    if want.dtype == torch.bfloat16:
-        tol = tol + BF16_STEP * want.double().abs()
-    return tol
+    """:func:`dot_tolerance` for two implementations, plus one step of a
+    bf16 or float16 output."""
+    return dot_tolerance(a, b) + output_step(want.dtype) * want.double().abs()
 
 
 def compare_matmul(got, a, b, out_dtype=None) -> float:
     """``got`` (an ``spm_matmul`` output) against the plain version:
-    int8 bit for bit; floats within :func:`matmul_tolerance`."""
+    integer operands bit for bit (int8 sums wrap exactly; the others are
+    :data:`SMALL_INTS`, whose float32 sums are exact); floats within
+    :func:`matmul_tolerance`."""
     want = sm.spm_matmul_plain(a, b, out_dtype=out_dtype)
-    if a.dtype == torch.int8:
+    if not a.dtype.is_floating_point:
         return _require_equal("spm_matmul", got, want)
     _no_tf32(a.device)
     return require_close("spm_matmul", got, want,
@@ -726,12 +750,11 @@ SSD_TOL = 3e-3             # tests/kernels/test_kernels.py:113-115
 
 def _capped(name, got, want, rel_tol, abs_terms, cap) -> float:
     """Raise unless ``|got - want| <= min(rel_tol * abs_terms, cap (1 +
-    |want|))``, plus one bf16 step for a bf16 output; the largest
+    |want|))``, plus one step of a bf16 or float16 output; the largest
     absolute difference."""
     tol = torch.minimum(rel_tol * abs_terms.double(),
                         cap * (1 + want.double().abs()))
-    if want.dtype == torch.bfloat16:
-        tol = tol + BF16_STEP * want.double().abs()
+    tol = tol + output_step(want.dtype) * want.double().abs()
     return require_close(name, got, want, tol)
 
 
@@ -1009,3 +1032,150 @@ def check_compute_case(rng, kernel: str, shape: dict, device) -> float:
         return max(check_ssd(rng, device=device, dtype=dt, **shape)
                    for dt in LM_TYPES)
     return check_het_mimd(rng, device=device, **shape)
+
+
+# ---------------------------------------------------------------------------
+# the inputs the reference takes past the first kernels' limits (head
+# widths above 128, float16, negative windows, the whole matmul domain,
+# FFTs above 16384 points, uint8 intrinsics, wide SSD states, large
+# composite filters): each held against its plain version, each required
+# to launch its kernel
+# ---------------------------------------------------------------------------
+
+def _matmul_edges(rng, device) -> float:
+    """XLA's casts at their edges, bit for bit against the plain version
+    and the values the reference gives: int32 (1 << 24) + 1 rounds to
+    2^24 on its way to float32; 128 x 2^20 x 2^10 = 2^37 saturates to
+    +-(2^31 - 1 or 2^31); a NaN sum gives 0; an int8 product into
+    float16 overflows to inf and into int16 wraps."""
+    def run(a, b, od, want):
+        a, b = a.to(device), b.to(device)
+        got = sm.spm_matmul(a, b, out_dtype=od)
+        _require_equal("spm_matmul edge", got,
+                       sm.spm_matmul_plain(a, b, out_dtype=od))
+        _require_equal("spm_matmul edge", got.cpu(),
+                       torch.tensor(want, dtype=got.dtype))
+    i32 = torch.int32
+    run(torch.tensor([[(1 << 24) + 1]], dtype=i32),
+        torch.tensor([[1]], dtype=i32), None, [[1 << 24]])
+    run(torch.full((1, 128), 1 << 20, dtype=i32),
+        torch.tensor([[1 << 10, -(1 << 10)]] * 128, dtype=i32), None,
+        [[2147483647, -2147483648]])
+    run(torch.tensor([[float("nan"), 1.0]]), torch.ones((2, 1)), i32, [[0]])
+    a8 = torch.full((1, 130), 127, dtype=torch.int8)
+    b8 = torch.full((130, 1), 127, dtype=torch.int8)
+    run(a8, b8, torch.float16, [[float("inf")]])
+    run(a8, b8, torch.int16, [[-382]])
+    return 0.0
+
+
+def _attention(dtype, hd, causal=True, window=0, q_offset=0, S=200, H=4,
+               KV=2):
+    return lambda rng, dev: check_attention(
+        rng, 1, H, KV, S, S, hd, dev, dtype=dtype, causal=causal,
+        window=window, q_offset=q_offset)
+
+
+def _matmul(dtype, out_dtype=None, M=130, K=257, N=70):
+    return lambda rng, dev: check_matmul(rng, M, K, N, dtype, dev,
+                                         out_dtype=out_dtype)
+
+
+def _fft_exact(B, n):
+    def run(rng, dev):
+        re = random_floats(rng, (B, n), torch.float32, dev)
+        im = random_floats(rng, (B, n), torch.float32, dev)
+        got, want = sf.spm_fft(re, im), sf.spm_fft_plain(re, im)
+        _require_equal(f"spm_fft re ({B}, {n})", got[0], want[0])
+        _require_equal(f"spm_fft im ({B}, {n})", got[1], want[1])
+        return 0.0
+    return run
+
+
+def _kdotp_u8(n):
+    def run(rng, dev):
+        a = torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8)).to(dev)
+        b = torch.from_numpy(rng.integers(0, 256, n).astype(np.uint8)).to(dev)
+        for got, want in ((kd.kdotp(a, b), (a.long() * b.long()).sum()),
+                          (kd.kvred(a), a.long().sum())):
+            want = int(want.to(torch.int32))
+            if got.dtype != torch.int32 or int(got) != want:
+                raise AssertionError(f"uint8 kdotp / kvred: {int(got)} != "
+                                     f"{int(want)}")
+        return float(check_reduce(rng, torch.uint8, 4, n // 4, dev,
+                                  mode=kd.WRAP32))
+    return run
+
+
+#: name -> (module, its counter that must move, expected moves, the check
+#: (rng, device) -> largest absolute difference)
+EDGE_CHECKS = {
+    "attn_hd256_bf16": (fa, "tc_launch_count", 1,
+                        _attention(torch.bfloat16, 256)),
+    "attn_pixtral_hd160_bf16": (fa, "tc_launch_count", 1,
+                                _attention(torch.bfloat16, 160, H=8, KV=2)),
+    "attn_hd256_f32": (fa, "launch_count", 1,
+                       _attention(torch.float32, 256, causal=False)),
+    "attn_f16": (fa, "tc_launch_count", 1,
+                 _attention(torch.float16, 64, window=33)),
+    "attn_f16_hd176": (fa, "tc_launch_count", 1,
+                       _attention(torch.float16, 176, causal=False, S=90,
+                                  H=2, KV=1)),
+    "attn_f16_hd320": (fa, "launch_count", 1,
+                       _attention(torch.float16, 320, S=70, H=2, KV=1)),
+    "attn_negwin_causal": (fa, "tc_launch_count", 1,
+                           _attention(torch.bfloat16, 64, window=-5)),
+    "attn_negwin_full": (fa, "launch_count", 1,
+                         _attention(torch.float32, 64, causal=False,
+                                    window=-20, q_offset=3)),
+    "attn_negwin_full_bf16": (fa, "tc_launch_count", 1,
+                              _attention(torch.bfloat16, 128, causal=False,
+                                         window=-70)),
+    "matmul_int16": (sm, "launch_count", 1, _matmul(torch.int16)),
+    "matmul_uint8": (sm, "launch_count", 1, _matmul(torch.uint8)),
+    "matmul_int32": (sm, "launch_count", 1, _matmul(torch.int32)),
+    "matmul_f16": (sm, "tc_launch_count", 1,
+                   _matmul(torch.float16, M=129, K=257, N=63)),
+    "matmul_f16_f32out": (sm, "tc_launch_count", 1,
+                          _matmul(torch.float16, torch.float32)),
+    "matmul_int8_f32out": (sm, "tc_launch_count", 1,
+                           _matmul(torch.int8, torch.float32)),
+    "matmul_int8_bf16out": (sm, "tc_launch_count", 1,
+                            _matmul(torch.int8, torch.bfloat16)),
+    "matmul_int32_edges": (sm, "launch_count", 5, _matmul_edges),
+    "fft_2x32768": (sf, "launch_count", sf.launches_for(32768),
+                    _fft_exact(2, 32768)),
+    "fft_1x131072": (sf, "launch_count", sf.launches_for(131072),
+                     _fft_exact(1, 131072)),
+    "kdotp_kvred_u8_65536": (kd, "launch_count", 3, _kdotp_u8(65536)),
+    "fused_vops_u8_1024x1024": (fv, "launch_count", 1,
+                                lambda rng, dev: float(check_fused(
+                                    rng, torch.uint8, 1024, 1024, dev))),
+    "ssd_n1024": (ss, "launch_count", ss.LAUNCHES_PER_CALL,
+                  lambda rng, dev: check_ssd(rng, 1, 1024, 8, 64, 1024, 1,
+                                             256, dev)),
+    "ssd_f16": (ss, "launch_count", ss.LAUNCHES_PER_CALL,
+                lambda rng, dev: check_ssd(rng, 2, 512, 4, 64, 128, 1, 256,
+                                           dev, dtype=torch.float16)),
+    "het_mimd_f161": (hm, "launch_count", 1,
+                      lambda rng, dev: check_het_mimd(rng, 70, 50, 161, 4,
+                                                      256, 65, 33, 70, dev)),
+}
+
+
+def check_edge(rng, name: str, device) -> dict:
+    """One :data:`EDGE_CHECKS` entry on ``device``: ``{"max_abs_err",
+    "launches"}``. Raises unless it agrees with its plain version and,
+    on the card, its counter moved by the expected launches (on the CPU
+    the plain versions launch nothing)."""
+    mod, counter, expected, fn = EDGE_CHECKS[name]
+    before = getattr(mod, counter)
+    err = fn(rng, device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    moved = getattr(mod, counter) - before
+    want = expected if torch.device(device).type == "cuda" else 0
+    if moved != want:
+        raise AssertionError(f"{name}: {mod.__name__}.{counter} moved by "
+                             f"{moved}, expected {want}")
+    return {"max_abs_err": float(err), "launches": moved}

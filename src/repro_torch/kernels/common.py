@@ -7,6 +7,21 @@ from typing import Optional, Union
 import torch
 
 
+def xla_convert(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An accumulator (float32, or an int32 sum) in ``dtype``, as XLA
+    converts: into a float type to nearest even (an int32 through
+    float32 first); a float into an integer type truncated toward zero
+    and saturated, NaN giving 0 (clamped in float64, where the int32
+    bounds are exact); an int32 into an integer type wrapped."""
+    if dtype.is_floating_point:
+        return acc.float().to(dtype)
+    if not acc.dtype.is_floating_point:
+        return acc.to(dtype)
+    info = torch.iinfo(dtype)
+    return acc.double().nan_to_num(0.0).clamp(info.min, info.max).trunc() \
+        .to(dtype)
+
+
 def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 

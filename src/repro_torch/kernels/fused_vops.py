@@ -37,7 +37,7 @@ TWO_SOURCE = frozenset({"kaddv", "ksubv", "kvmul", "kvslt"})
 MAX_OPS, MAX_INPUTS, MAX_OUTPUTS = 64, 24, 64
 MAX_SLOTS = MAX_INPUTS + MAX_OPS
 NO_SLOT = 255
-DTYPES = {torch.int8: 0, torch.int16: 1, torch.int32: 2}
+DTYPES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.uint8: 3}
 _INT64 = (-(1 << 63), (1 << 63) - 1)
 
 #: kernel launches so far (the CUDA path only; the plain version and
@@ -55,7 +55,10 @@ def apply_vop(op: str, a: torch.Tensor, b: Optional[torch.Tensor],
               imm: int) -> torch.Tensor:
     """Element-wise KVI semantics: wrap-around integer arithmetic like
     the paper's MFU datapath (``repro/core/mfu.py``). ``imm`` is an
-    int64; add and mul wrap it, ksvslt compares it exactly."""
+    int64; add and mul wrap it, ksvslt compares it exactly. uint8
+    tensors (the intrinsics' own, as the reference's jnp ops take them)
+    widen without sign, so ksrav shifts them logically and the
+    comparisons are unsigned."""
     dt = a.dtype
     bits = 8 * a.element_size()
     mask = (1 << bits) - 1
@@ -173,8 +176,8 @@ class Windows:
 def _check(record: FusedRecord, win: Windows, src: torch.Tensor,
            dst: torch.Tensor) -> None:
     if src.dtype not in DTYPES or dst.dtype != src.dtype:
-        raise TypeError(f"fused_vops takes int8/int16/int32 tensors of one "
-                        f"dtype, got {src.dtype} and {dst.dtype}")
+        raise TypeError(f"fused_vops takes int8/int16/int32/uint8 tensors of "
+                        f"one dtype, got {src.dtype} and {dst.dtype}")
     if src.dim() != 2 or dst.dim() != 2 or src.shape[0] != dst.shape[0]:
         raise ValueError(f"fused_vops takes (rows, width) tensors with one "
                          f"row count, got {tuple(src.shape)} and "

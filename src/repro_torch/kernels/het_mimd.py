@@ -13,10 +13,13 @@ kernels, on three "harts", in ONE kernel launch.
   out whatever the operands' dtype.
 
 Every operand is taken in float32, as the reference's branches cast
-them. On CUDA tensors the wrapper launches ``csrc/het_mimd.cu`` once:
-the block index range is the hart (matmul tiles first, the longest
-blocks, then conv tiles, then FFT row groups) and selects the tile
-program. On CPU tensors it runs :func:`het_mimd_composite_plain`.
+them, at any F. On CUDA tensors the wrapper launches ``csrc/het_mimd.cu``
+once: the block index range is the hart (matmul tiles first, the
+longest blocks, then conv tiles, then FFT row groups) and selects the
+tile program. The conv hart stages its tile's whole input window for F
+up to :data:`STREAM_F` and streams the input rows above it
+(:func:`conv_streamed`). On CPU tensors it runs
+:func:`het_mimd_composite_plain`.
 """
 from __future__ import annotations
 
@@ -32,17 +35,32 @@ from repro_torch.kernels.spm_fft import check_planes, pass_plan, sm_count, \
 
 TILE = 32                          # conv tile edge (csrc/spm_tiles.cuh)
 SMEM_LIMIT = 232_448               # bytes of shared memory a block may use
+#: the widest filter whose conv tiles stage the whole (31 + F)^2 window
+STREAM_F = 32
 
 #: kernel launches so far (the CUDA path only)
 launch_count = 0
 
 
+def conv_streamed(F: int) -> bool:
+    """Whether the conv hart streams input rows (``conv_rows_tile``:
+    one ``TILE + F - 1`` row in shared memory) rather than staging its
+    tile's ``(TILE + F - 1)^2`` window and the filter (``conv_tile``)."""
+    return F > STREAM_F
+
+
+def conv_smem_bytes(F: int) -> int:
+    """The conv hart's shared memory a block (csrc/spm_tiles.cuh)."""
+    if conv_streamed(F):
+        return (TILE + F - 1) * 4
+    return ((TILE + F - 1) ** 2 + F * F) * 4
+
+
 def check_tile_filter(filt: torch.Tensor, img: torch.Tensor) -> int:
-    """:func:`check_filter`, and the conv hart's shared-memory test: its
-    ``conv_tile`` stages a ``(TILE + F - 1)^2`` window and the F x F
-    filter a block. Returns F."""
+    """:func:`check_filter`, and the conv hart's shared-memory test (a
+    row of ``TILE + F - 1`` floats: F up to 58 000). Returns F."""
     F = check_filter(filt, img)
-    if ((TILE + F - 1) ** 2 + F * F) * 4 > SMEM_LIMIT:
+    if conv_smem_bytes(F) > SMEM_LIMIT:
         raise ValueError(f"het_mimd: a {F} x {F} filter needs more shared "
                          f"memory than a block has")
     return F
@@ -89,7 +107,8 @@ def het_mimd_composite(img: torch.Tensor, filt: torch.Tensor,
         return conv, ore, oim, mm
     plan = pass_plan(n, nb, sm_count(img.device))
     rc = _library().het_mimd_launch(
-        img.data_ptr(), filt.data_ptr(), F, conv.data_ptr(), H, W,
+        img.data_ptr(), filt.data_ptr(), F, int(conv_streamed(F)),
+        conv.data_ptr(), H, W,
         fft_re.data_ptr(), fft_im.data_ptr(), tw.data_ptr(), ore.data_ptr(),
         oim.data_ptr(), nb, log2n, plan.packed, plan.rows_per_block,
         A.data_ptr(), B.data_ptr(), mm.data_ptr(), M, K, N,
@@ -105,8 +124,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.het_mimd_launch
     if fn.argtypes is None:
         i64, vp, ci = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, ci, vp, i64, i64, vp, vp, vp, vp, vp, i64, ci,
-                       ctypes.c_uint, ci, vp, vp, vp, i64, i64, i64, vp]
+        fn.argtypes = [vp, vp, ci, ci, vp, i64, i64, vp, vp, vp, vp, vp, i64,
+                       ci, ctypes.c_uint, ci, vp, vp, vp, i64, i64, i64, vp]
         fn.restype = ci
     return lib
 

@@ -13,6 +13,7 @@ element-wise product of two) into one element per row, with a flush step:
   :func:`kvred`): wrap the sum to int32 first, then shift — the order of
   the reference Pallas kernel and ``repro.kernels.ref.kdotp_ref``.
 
+uint8 operands widen without sign (the reference's ``astype(int32)``).
 float32 operands accumulate in float32 and a shift divides by 2^shift.
 On a CUDA tensor the wrapper launches ``csrc/kdotp.cu`` once for all
 rows; on a CPU tensor it runs :func:`reduce_rows_plain`.
@@ -28,7 +29,8 @@ from repro_torch.kernels.build import load_library
 
 ORACLE, WRAP32 = 0, 1
 POST_NONE, POST_SHIFT, POST_ADD, POST_MUL = 0, 1, 2, 3
-DTYPES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
+DTYPES = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3,
+          torch.uint8: 4}
 _INT64 = (-(1 << 63), (1 << 63) - 1)
 _M32 = 0xFFFFFFFF
 
@@ -39,8 +41,8 @@ launch_count = 0
 def _check(out: torch.Tensor, a: torch.Tensor, b: Optional[torch.Tensor],
            post: int, scalar: int, mode: int) -> None:
     if a.dtype not in DTYPES:
-        raise TypeError(f"reduce_rows takes int8/int16/int32/float32, got "
-                        f"{a.dtype}")
+        raise TypeError(f"reduce_rows takes int8/int16/int32/uint8/float32, "
+                        f"got {a.dtype}")
     if a.dim() != 2 or a.stride(1) != 1:
         raise ValueError("reduce_rows takes a (rows, n) operand with unit "
                          "column stride")

@@ -49,6 +49,7 @@ from repro_torch.kernels.common import resolve_device
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {
     "bf16": 989e12,        # bf16 tensor cores
+    "fp16": 989e12,        # float16 tensor cores
     "int8": 1979e12,       # int8 tensor cores
     "fp32": 67e12,         # FP32 outside the tensor cores (no TF32)
     "int32": 33.5e12,      # INT32 outside the tensor cores
@@ -160,6 +161,25 @@ CARD = (
              dict(Bz=2, S=4096, H=64, P=64, N=128, G=1, chunk=256,
                   dtype="float32"),
              "configs/mamba2_1_3b.py (d_inner 4096 / headdim 64) at 4k"),
+    # inputs the reference takes past the first kernels' limits
+    Workload("attn_pixtral12b_causal_4096", "flash_attention",
+             dict(B=1, H=32, KV=8, Sq=4096, Skv=4096, hd=160,
+                  dtype="bfloat16"),
+             "configs/pixtral_12b.py at train_4k: head_dim 160, causal"),
+    Workload("fft_256x65536", "spm_fft", dict(B=256, n=65536),
+             "a 65536-point transform, past one block's shared memory"),
+    Workload("matmul_f16_4096", "spm_matmul",
+             dict(M=4096, K=4096, N=4096, dtype="float16"),
+             "the dense product in float16"),
+    Workload("matmul_int32_2048", "spm_matmul",
+             dict(M=2048, K=2048, N=2048, dtype="int32"),
+             "an int32 product, the reference's float32 sum (operands in "
+             "-90 .. 90: no sum rounds)"),
+    Workload("composite_512_f161", "het_mimd",
+             dict(H=512, W=512, F=161, nb=1024, n=256, m=1024, k=1024,
+                  p=1024),
+             "the composite with a 161 x 161 filter (img 672^2): the conv "
+             "hart's streamed rows"),
 )
 
 
@@ -301,11 +321,14 @@ def library_call(w: Workload, x: dict) -> Optional[Callable[[], object]]:
     """One PyTorch call computing the workload's function (three for the
     composite, one per hart), or None where PyTorch has none: an integer
     convolution (a bf16 one takes the filter rounded to bf16), an int8
-    product outside ``torch._int_mm``'s shapes, the SSD scan."""
+    product outside ``torch._int_mm``'s shapes, a product of other
+    integers (``torch.matmul`` takes none on the card), the SSD scan."""
     if w.kernel == "spm_matmul":
         a, b = x["a"], x["b"]
-        if a.dtype != torch.int8:
+        if a.dtype.is_floating_point:
             return lambda: torch.matmul(a, b)
+        if a.dtype != torch.int8:
+            return None
         M, K = a.shape
         if M > 16 and K % 8 == 0 and b.shape[1] % 8 == 0:
             return lambda: torch._int_mm(a, b)
@@ -347,7 +370,7 @@ def _attention_cost(s: dict) -> Tuple[int, List[Tuple[int, str]]]:
     m = attention_masks(s)
     pairs = fa.visible_pairs(Sq, Skv, m["causal"], m["window"],
                              m["q_offset"])
-    key = "bf16" if s["dtype"] == "bfloat16" else "fp32"
+    key = {"bfloat16": "bf16", "float16": "fp16"}.get(s["dtype"], "fp32")
     return ((2 * B * H * Sq + 2 * B * KV * Skv) * hd * size,
             [(4 * B * H * pairs * hd, key)])
 
@@ -402,7 +425,8 @@ def cost(w: Workload) -> Tuple[int, List[Tuple[int, str]]]:
         out = sm.result_dtype(dt)
         size = torch.empty((), dtype=dt).element_size()
         osize = torch.empty((), dtype=out).element_size()
-        key = {torch.bfloat16: "bf16", torch.int8: "int8"}.get(dt, "fp32")
+        key = {torch.bfloat16: "bf16", torch.float16: "fp16",
+               torch.int8: "int8"}.get(dt, "fp32")
         return (M * K + K * N) * size + M * N * osize, [(2 * M * N * K, key)]
     if w.kernel == "spm_conv2d":
         dt = DTYPES[s["dtype"]]
@@ -521,27 +545,37 @@ def reps_for(fn, budget_ms: float = 100.0) -> int:
 
 def tensor_core_call(w: Workload) -> bool:
     """Whether the workload's call runs a tensor-core kernel on the card
-    (bf16 and int8 products, bf16 attention)."""
+    (bf16, float16 and int8 products, bf16 and float16 attention up to
+    hd 256)."""
     mod = MODULES[w.kernel]
-    return hasattr(mod, "uses_tensor_cores") and \
-        mod.uses_tensor_cores(DTYPES[w.shape["dtype"]])
+    if not hasattr(mod, "uses_tensor_cores"):
+        return False
+    dt = DTYPES[w.shape["dtype"]]
+    if w.kernel == "flash_attention":
+        return mod.uses_tensor_cores(dt, w.shape["hd"])
+    return mod.uses_tensor_cores(dt)
 
 
 COUNTERS = ("launch_count", "tc_launch_count")
 
 
-def launches_per_call(kernel: str) -> int:
+def launches_per_call(kernel: str, shape: Optional[dict] = None) -> int:
     """Kernel launches of one call of the workload's kernel module: one,
-    or the SSD scan's three."""
+    the SSD scan's three, or, for an FFT of more than 16384 points
+    (``shape["n"]``), its stage passes, transform and gather."""
+    if kernel == "spm_fft" and shape is not None:
+        return sf.launches_for(shape["n"])
     return getattr(MODULES[kernel], "LAUNCHES_PER_CALL", 1)
 
 
 def device_names(kernel: str) -> Tuple[str, ...]:
     """The device names of the module's kernels, as the profiler sees
-    them (each a substring of the event's name)."""
+    them (each a substring of the event's name; the FFT's ``spm_fft_``
+    covers its stage and gather kernels too)."""
     parts = getattr(MODULES[kernel], "PARTS", None)
-    return tuple(f"{p}_kernel" for p in parts) if parts else \
-        (f"{kernel}_kernel",)
+    if parts:
+        return tuple(f"{p}_kernel" for p in parts)
+    return ("spm_fft_",) if kernel == "spm_fft" else (f"{kernel}_kernel",)
 
 
 def save_counts() -> dict:

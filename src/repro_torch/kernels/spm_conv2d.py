@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as tnf
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.common import round_up
+from repro_torch.kernels.common import round_up, xla_convert
 from repro_torch.kernels.spm_fft import sm_count
 
 #: image dtype -> the kernel's dtype code (csrc/spm_conv2d.cu)
@@ -171,16 +171,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def cast_back(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A float32 accumulator in an image dtype: floats rounded to nearest
-    even; integers truncated toward zero and saturated, NaN giving 0
-    (XLA's float-to-integer convert)."""
-    if dtype.is_floating_point:
-        return acc.to(dtype)
-    info = torch.iinfo(dtype)
-    return acc.nan_to_num(0.0).clamp(info.min, info.max).trunc().to(dtype)
-
-
 def correlate_plain(padded: torch.Tensor, filt: torch.Tensor,
                     shift: int = 0, taps=None) -> torch.Tensor:
     """Valid F x F correlation of a padded image, in the kernel's
@@ -188,9 +178,9 @@ def correlate_plain(padded: torch.Tensor, filt: torch.Tensor,
     int64, masked to the low 32 bits after every tap, so nothing
     overflows), wrapped, then shifted; other dtypes summed in float32,
     one rounded product and one rounded sum per tap, in ``(fr, fc)``
-    order, then :func:`cast_back`. ``taps`` = ``(rows, cols)``, two
-    ranges, limits the taps to those (the others must add nothing).
-    Returns the input's dtype."""
+    order, then cast back as XLA does (``common.xla_convert``). ``taps``
+    = ``(rows, cols)``, two ranges, limits the taps to those (the others
+    must add nothing). Returns the input's dtype."""
     F = filt.shape[0]
     H, W = padded.shape[0] - F + 1, padded.shape[1] - F + 1
     rows, cols = taps if taps is not None else (range(F), range(F))
@@ -208,7 +198,7 @@ def correlate_plain(padded: torch.Tensor, filt: torch.Tensor,
     for fr in rows:
         for fc in cols:
             acc = acc + x[fr:fr + H, fc:fc + W] * w[fr, fc]
-    return cast_back(acc, padded.dtype)
+    return xla_convert(acc, padded.dtype)
 
 
 def live_taps(H: int, W: int, filt: torch.Tensor):

@@ -2,8 +2,8 @@
 ``repro/kernels/spm_fft.py::_fft_kernel``.
 
 ``spm_fft(re, im)`` transforms every row of ``[B, n]`` real and
-imaginary planes (n a power of two, at most :data:`MAX_N`) and returns
-the float32 planes of the DFT. The algorithm is the reference's:
+imaginary planes (n a power of two) and returns the float32 planes of
+the DFT. The algorithm is the reference's:
 ``log2(n)`` decimation-in-frequency stages over contiguous halves, the
 stage of half-size ``h`` multiplying the difference by the twiddle
 ``cos/sin(float32(-2 pi) * k / (2 h))``, then the bit-reversal gather
@@ -12,12 +12,14 @@ once per n and device; the kernel and :func:`spm_fft_plain` read the
 same table and round every operation alike, so on the card the two
 agree bit for bit.
 
-On a CUDA tensor the wrapper launches ``csrc/spm_fft.cu`` once, with
-the pass plan of :func:`pass_plan`; on a CPU tensor it runs
-:func:`spm_fft_plain`. n above :data:`MAX_N` raises ``ValueError``: one
-row then needs more than the 128 KB of shared memory the kernel is built
-for. The reference's ``batch_block`` and ``interpret`` have no
-counterpart.
+On a CUDA tensor with n up to :data:`MAX_N` the wrapper launches
+``csrc/spm_fft.cu`` once, with the pass plan of :func:`pass_plan`. Above
+it (a row past a block's shared memory) a call is
+:func:`launches_for` ``(n)`` launches: the first log2(n) - 14 stages as
+global-memory passes, the rest as that kernel on the 16384-point blocks,
+then one gather into natural order (:func:`spm_fft_large`). On a CPU
+tensor it runs :func:`spm_fft_plain`. The reference's ``batch_block``
+and ``interpret`` have no counterpart.
 """
 from __future__ import annotations
 
@@ -31,14 +33,15 @@ import torch
 
 from repro_torch.kernels.build import load_library
 
-MAX_N = 16384
+MAX_N = 16384               # the most points of the one-launch route
+LOG2_MAX_N = MAX_N.bit_length() - 1
 #: the kernel's block size, its most radix-2 stages in one pass, and the
 #: H100's SM count
 THREADS = 256
 MAX_RADIX = 4
 SMS = 132
 
-#: kernel launches so far (the CUDA path only)
+#: kernel launches so far (the CUDA path only), of every kind
 launch_count = 0
 
 _TWIDDLES: Dict[Tuple[int, str], torch.Tensor] = {}
@@ -60,10 +63,15 @@ def check_planes(re: torch.Tensor, im: torch.Tensor) -> int:
     n = int(re.shape[1])
     if n < 1 or n & (n - 1):
         raise ValueError(f"spm_fft: n = {n} is not a power of two")
-    if n > MAX_N:
-        raise ValueError(f"spm_fft: n = {n} exceeds {MAX_N} (one row would "
-                         f"not fit a block's shared memory)")
     return n.bit_length() - 1
+
+
+def launches_for(n: int) -> int:
+    """Kernel launches of one call on rows of n points: 1 up to
+    :data:`MAX_N`, else a stage pass for each of the log2(n) - 14 stages
+    above a block, the 16384-point transform and the gather."""
+    log2n = n.bit_length() - 1
+    return 1 if log2n <= LOG2_MAX_N else log2n - LOG2_MAX_N + 2
 
 
 class PassPlan(NamedTuple):
@@ -148,19 +156,64 @@ def spm_fft(re: torch.Tensor, im: torch.Tensor
         raise ValueError(f"spm_fft: unsupported device {re.device}")
     re = re.to(torch.float32).contiguous()
     im = im.to(torch.float32).contiguous()
-    B, n = re.shape
-    tw = twiddles(n, re.device)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     if re.numel() == 0:
         return ore, oim
-    plan = pass_plan(n, B, sm_count(re.device))
-    rc = _library().spm_fft_launch(
-        re.data_ptr(), im.data_ptr(), tw.data_ptr(), ore.data_ptr(),
-        oim.data_ptr(), B, log2n, plan.packed, plan.rows_per_block,
-        torch.cuda.current_stream(re.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"spm_fft kernel launch failed: CUDA error {rc}")
+    if log2n > LOG2_MAX_N:
+        return spm_fft_large(re, im, ore, oim)
+    _launch_rows(re, im, ore, oim)
     launch_count += 1
+    return ore, oim
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _launch_rows(re, im, ore, oim) -> None:
+    """One launch of the shared-memory kernel over ``[B, n]`` planes, n
+    at most :data:`MAX_N`."""
+    B, n = re.shape
+    plan = pass_plan(n, B, sm_count(re.device))
+    _raise_on(_library().spm_fft_launch(
+        re.data_ptr(), im.data_ptr(), twiddles(n, re.device).data_ptr(),
+        ore.data_ptr(), oim.data_ptr(), B, n.bit_length() - 1, plan.packed,
+        plan.rows_per_block, _stream(re)), "spm_fft")
+
+
+def spm_fft_large(re, im, ore, oim):
+    """n = 2^L above :data:`MAX_N` on the card, into ``(ore, oim)``: the
+    stages of half-size n / 2 .. 2^14 as one global-memory pass each
+    (``spm_fft_stage_launch``, in place on ``(ore, oim)`` after the
+    first), the remaining 14 stages of every block of 16384 points as
+    the shared-memory kernel over 2^(L - 14) B rows (the blocks' own DIF
+    transforms, in their natural order), and one gather into the row's
+    natural order (``spm_fft_permute_launch``)."""
+    global launch_count
+    B, n = re.shape
+    log2n = n.bit_length() - 1
+    s = log2n - LOG2_MAX_N
+    lib, stream = _library(), _stream(re)
+    tw = twiddles(n, re.device)
+    src_re, src_im = re, im
+    for log2h in range(log2n - 1, LOG2_MAX_N - 1, -1):
+        _raise_on(lib.spm_fft_stage_launch(
+            src_re.data_ptr(), src_im.data_ptr(), tw.data_ptr(),
+            ore.data_ptr(), oim.data_ptr(), B, log2n, log2h, stream),
+            "spm_fft stage")
+        src_re, src_im = ore, oim
+    sub_re, sub_im = torch.empty_like(re), torch.empty_like(im)
+    _launch_rows(ore.view(B << s, MAX_N), oim.view(B << s, MAX_N),
+                 sub_re.view(B << s, MAX_N), sub_im.view(B << s, MAX_N))
+    _raise_on(lib.spm_fft_permute_launch(
+        sub_re.data_ptr(), sub_im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+        B, s, stream), "spm_fft permute")
+    launch_count += s + 2
     return ore, oim
 
 
@@ -171,6 +224,11 @@ def _library() -> ctypes.CDLL:
         i64, vp, ci = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, i64, ci, ctypes.c_uint, ci, vp]
         fn.restype = ci
+        lib.spm_fft_stage_launch.argtypes = [vp, vp, vp, vp, vp, i64, ci, ci,
+                                             vp]
+        lib.spm_fft_stage_launch.restype = ci
+        lib.spm_fft_permute_launch.argtypes = [vp, vp, vp, vp, i64, ci, vp]
+        lib.spm_fft_permute_launch.restype = ci
     return lib
 
 

@@ -2,8 +2,8 @@
 ``repro/kernels/ssd_scan.py::_ssd_kernel``.
 
 ``ssd_scan(x, da, dt, B, C, chunk=256)`` takes x ``[Bz, S, H, P]``
-(float32 or bf16), da = dt * A and dt ``[Bz, S, H]``, and B, C ``[Bz, S,
-H, N]`` already broadcast from their groups to the heads (the op
+(float32, bf16 or float16), da = dt * A and dt ``[Bz, S, H]``, and B, C
+``[Bz, S, H, N]`` already broadcast from their groups to the heads (the op
 :func:`repro_torch.kernels.ops.ssd_scan_op` does that), and returns y
 ``[Bz, S, H, P]`` in x's dtype and the final state ``[Bz, H, N, P]`` in
 float32. Chunks of ``cs = min(chunk, S)`` steps: S must be a multiple of
@@ -25,9 +25,11 @@ On CUDA tensors each step is one launch of its kernel in
 C widened to float32 first, which is exact), so :func:`ssd_scan`
 launches ``LAUNCHES_PER_CALL`` kernels a call; on CPU tensors each runs
 its plain version (``*_plain``), and :func:`ssd_scan_plain` is their
-composition. Shapes whose tile of C needs more than a block's 227 KB of
-shared memory (:func:`smem_bytes`: N above 608 at chunk 256) raise
-``ValueError``. The reference's ``interpret`` has no counterpart.
+composition. Any N: where the chunk scan's whole tile of C would pass a
+block's 227 KB of shared memory (N above 608 at chunk 256) it streams C
+(:func:`streams_c`). A chunk whose per-step vectors pass that (cs above
+16469, :func:`smem_bytes`) raises ``ValueError``. The reference's
+``interpret`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.kernels.build import load_library
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_SMEM = 232448          # a block's opt-in shared memory on an H100
 TILE = 64                  # the kernels' tile edge (csrc/ssd_scan.cu)
 SLAB = 32                  # their K slab
@@ -59,17 +61,30 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _scan_resident_bytes(N: int, cs: int) -> int:
+    return 4 * (_ceil(N, SLAB) * SLAB * LD + STAGES * SLAB * LD
+                + 2 * TILE * LD + 2 * cs)
+
+
+def streams_c(N: int, cs: int) -> bool:
+    """Whether the chunk scan streams C in slabs beside B (``kStreamC``)
+    because its whole 64 x N tile of C would pass a block's shared
+    memory (mirrors ``scan_streams_c`` in ``csrc/ssd_scan.cu``)."""
+    return _scan_resident_bytes(N, cs) > MAX_SMEM
+
+
 def smem_bytes(N: int, cs: int) -> Dict[str, int]:
     """Each kernel's shared memory at (N, cs) (mirrors ``state_smem`` and
     ``scan_smem`` in ``csrc/ssd_scan.cu``): the chunk state's two stages
-    of B and of x dt w, and the chunk's cum, dt and w; the chunk scan's
-    64 x N tile of C, three stages of B or h_in, the scores, x, and the
-    chunk's cum and dt. P is tiled in the grid and takes none."""
+    of B and of x dt w, and the chunk's cum, dt and w (N and P are tiled
+    in the grid); the chunk scan's 64 x N tile of C (or, streaming C,
+    three stages of it), three stages of B or h_in, the scores, x, and
+    the chunk's cum and dt. P is tiled in the grid and takes none."""
+    scan = (4 * (2 * STAGES * SLAB * LD + 2 * TILE * LD + 2 * cs)
+            if streams_c(N, cs) else _scan_resident_bytes(N, cs))
     return {"ssd_chunk_state": 4 * (4 * SLAB * LD + 3 * cs),
             "ssd_state_pass": 0,
-            "ssd_chunk_scan": 4 * (_ceil(N, SLAB) * SLAB * LD
-                                   + STAGES * SLAB * LD + 2 * TILE * LD
-                                   + 2 * cs)}
+            "ssd_chunk_scan": scan}
 
 
 def chunk_size(S: int, chunk: int) -> int:
@@ -157,11 +172,12 @@ def ssd_scan(x: torch.Tensor, da: torch.Tensor, dt: torch.Tensor,
     if not _card(x):
         return ssd_scan_plain(x, da, dt, B, C, chunk=chunk)
     if x.dtype not in DTYPES:
-        raise TypeError(f"ssd_scan takes float32 or bfloat16 x, got {x.dtype}")
+        raise TypeError(f"ssd_scan takes float32, bfloat16 or float16 x, "
+                        f"got {x.dtype}")
     need = max(smem_bytes(N, cs).values())
     if need > MAX_SMEM:
-        raise ValueError(f"ssd_scan: N = {N}, chunk {cs} need {need} bytes "
-                         f"of shared memory, above {MAX_SMEM}")
+        raise ValueError(f"ssd_scan: chunk {cs} needs {need} bytes of "
+                         f"shared memory, above {MAX_SMEM}")
     x = x.contiguous()
     da, dt, B, C = _f32(da, dt, B, C)
     if x.numel() == 0 or B.numel() == 0:

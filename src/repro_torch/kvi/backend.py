@@ -74,13 +74,18 @@ class BackendBase:
     disables optimization entirely, and a sequence of pass names or
     callables runs a custom pipeline.
 
-    ``verify=True`` asks for the reference's static analyzer in front of
-    execution. The port has not copied the analyzer yet, so it raises
-    ``NotImplementedError`` rather than running unverified.
+    ``verify`` gates the static analyzer (:mod:`repro_torch.kvi.analysis`)
+    in front of execution: the workload is verified (structural checks,
+    fusion audit, cross-hart race check) and rejected with a
+    :class:`~repro_torch.kvi.analysis.KviVerificationError` on any
+    error-severity diagnostic, and the pass pipeline re-verifies after
+    every pass (:class:`~repro_torch.kvi.passes.PassVerificationError`
+    names the offending pass). Every built-in backend ctor takes
+    ``verify=``, and ``run_workload(verify=...)`` overrides it per call.
     """
 
     passes = None                    # None => default pipeline; () => off
-    verify = False                   # True => refused (no analyzer yet)
+    verify = False                   # True => static-verify before running
 
     def run(self, program: KviProgram) -> BackendResult:
         from repro_torch.kvi.workload import KviWorkload
@@ -90,13 +95,26 @@ class BackendBase:
                           verify: Optional[bool] = None) -> "KviWorkload":
         """The optimized workload this backend actually executes. Each
         distinct program object is optimized once; pipelines that change
-        nothing hand back the identical workload object."""
-        if self.verify if verify is None else verify:
-            raise NotImplementedError(
-                "verify=True needs the static analyzer (repro.kvi.analysis),"
-                " which the port has not copied yet")
+        nothing hand back the identical workload object.
+
+        ``verify=None`` defers to ``self.verify``; ``True`` statically
+        verifies the workload first (raising
+        :class:`~repro_torch.kvi.analysis.KviVerificationError` on errors)
+        and runs the pipeline in its self-checking mode."""
+        check = self.verify if verify is None else verify
+        if check:
+            from repro_torch.kvi.analysis import (DiagnosticReport,
+                                                  KviVerificationError,
+                                                  analyze_workload)
+            rep = analyze_workload(workload)
+            if not rep.ok:
+                raise KviVerificationError(
+                    DiagnosticReport(rep.errors),
+                    context=f"backend {self.name!r} rejected workload "
+                            f"{workload.name!r}")
         from repro_torch.kvi.passes import PassPipeline
-        pipe = PassPipeline.from_spec(getattr(self, "passes", None))
+        pipe = PassPipeline.from_spec(getattr(self, "passes", None),
+                                      verify=check)
         if not pipe:
             return workload
         return workload.map_programs(pipe.run)

@@ -26,14 +26,14 @@ from repro_torch.kvi.passes.fusion import (FusedRegion, FusionPlan, MAX_FUSED_IN
 from repro_torch.kvi.passes.liveness import (observable_items, peak_live_bytes,
                                        reg_intervals, total_vreg_bytes)
 from repro_torch.kvi.passes.pipeline import (DEFAULT_PASSES, REGISTERED_PASSES,
-                                       PassPipeline,
+                                       PassPipeline, PassVerificationError,
                                        default_pipeline, optimize_program)
 
 __all__ = [
     "copy_prop", "dce", "fuse_regions", "plan_fusion_regions",
     "FusedRegion", "FusionPlan", "MAX_FUSED_OPS", "MAX_FUSED_INPUTS",
     "META_KEY", "observable_items", "peak_live_bytes", "reg_intervals",
-    "total_vreg_bytes", "PassPipeline",
+    "total_vreg_bytes", "PassPipeline", "PassVerificationError",
     "DEFAULT_PASSES", "REGISTERED_PASSES", "default_pipeline",
     "optimize_program",
 ]

@@ -20,10 +20,12 @@ Passes that change nothing return the *same object*, so an unoptimizable
 program flows through the pipeline untouched — important for callers
 that key caches on program identity.
 
-``verify=True`` asks for the reference's self-checking mode, where the
-static analyzer runs after every pass. The port has not copied the
-analyzer yet, so a verifying pipeline raises ``NotImplementedError``
-instead of running unchecked.
+With ``verify=True`` the pipeline becomes its own sanitizer: the static
+analyzer (:mod:`repro_torch.kvi.analysis`) runs on the input program and
+again after **every** pass, and the first pass whose output carries a
+diagnostic the previous stage did not raises
+:class:`PassVerificationError` naming that pass — a miscompiling pass
+is caught at the pass boundary instead of as a backend divergence.
 """
 from __future__ import annotations
 
@@ -59,11 +61,32 @@ def _resolve(spec: PassSpec) -> Pass:
                        f"{sorted(REGISTERED_PASSES)}") from None
 
 
+class PassVerificationError(RuntimeError):
+    """A pass (or the pipeline's input) failed static verification.
+
+    ``pass_name`` is the pass whose output first showed the new
+    diagnostics (``"<input>"`` when the program was broken before any
+    pass ran); ``report`` carries the offending diagnostics."""
+
+    def __init__(self, pass_name: str, report, program_name: str):
+        self.pass_name = pass_name
+        self.report = report
+        self.program_name = program_name
+        where = ("input program" if pass_name == "<input>"
+                 else f"pass {pass_name!r}")
+        super().__init__(
+            f"pipeline verification of {program_name!r}: {where} "
+            f"introduced {len(report)} new diagnostic"
+            f"{'s' if len(report) != 1 else ''}:\n"
+            + report.render_text())
+
+
 @dataclass(frozen=True)
 class PassPipeline:
     """An ordered sequence of semantics-preserving program passes.
 
-    ``verify=True`` is refused at ``run`` (no static analyzer yet)."""
+    ``verify=True`` runs the static analyzer between every pass and
+    attributes the first new error to the pass that introduced it."""
 
     passes: Tuple[Pass, ...]
     verify: bool = False
@@ -88,12 +111,32 @@ class PassPipeline:
         return tuple(getattr(p, "__name__", repr(p)) for p in self.passes)
 
     def run(self, program: KviProgram) -> KviProgram:
-        if self.verify:
-            raise NotImplementedError(
-                "pass verification needs the static analyzer, which the "
-                "port has not copied yet")
-        for p in self.passes:
+        if not self.verify:
+            for p in self.passes:
+                program = p(program)
+            return program
+        return self._run_verified(program)
+
+    def _run_verified(self, program: KviProgram) -> KviProgram:
+        """Analyze input + every intermediate; raise on the pass whose
+        output first carries an error-severity diagnostic not already
+        present before it ran. Diagnostic identity is the pass-stable
+        ``Diagnostic.key`` (code + subject name), not item indices —
+        indices shift as passes delete instructions."""
+        from repro_torch.kvi.analysis import DiagnosticReport, analyze_program
+        rep = analyze_program(program)
+        if not rep.ok:
+            raise PassVerificationError(
+                "<input>", DiagnosticReport(rep.errors), program.name)
+        baseline = rep.keys()
+        for p, name in zip(self.passes, self.names):
             program = p(program)
+            rep = analyze_program(program)
+            new = [d for d in rep.errors if d.key not in baseline]
+            if new:
+                raise PassVerificationError(
+                    name, DiagnosticReport(new), program.name)
+            baseline |= rep.keys()
         return program
 
     def __bool__(self) -> bool:

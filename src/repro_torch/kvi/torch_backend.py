@@ -141,6 +141,12 @@ class TorchBackend(BackendBase):
     program; programs optimized by the default pipeline arrive with a
     :class:`FusionPlan` under the same bounds and run as planned.
 
+    ``verify=True`` (or ``run_workload(verify=True)``) runs the static
+    analyzer (:mod:`repro_torch.kvi.analysis`) before anything is
+    stacked: a workload with an error-severity diagnostic raises
+    ``KviVerificationError`` and launches nothing; the pass pipeline then
+    re-verifies after every pass.
+
     ``obs`` is the reference's telemetry bundle: ``None`` is accepted as
     the reference's call passes it; a live bundle raises
     ``NotImplementedError`` until the port copies the telemetry layer.
@@ -155,7 +161,8 @@ class TorchBackend(BackendBase):
     one lookup per region and reduction) and ``wall_s``. ``host_s`` holds
     the last run's host split, summed over its groups: ``stack_s`` (input
     stacks to the device), ``walk_s`` (the walk, synchronized on the
-    card) and ``unpack_s`` (outputs back to the host)."""
+    card) and ``unpack_s`` (outputs back to the host); and, when the run
+    verified, ``verify_s`` (the analyzer and the self-checking pipeline)."""
 
     def __init__(self, device=None, block: int = 256,
                  max_fused_ops: int = MAX_FUSED_OPS,
@@ -163,10 +170,6 @@ class TorchBackend(BackendBase):
                  passes=None, verify: bool = False,
                  kernel_cache: Optional[KernelCache] = None, obs=None):
         refuse_obs(obs)
-        if verify:
-            raise NotImplementedError(
-                "verify=True needs the static analyzer, which the port has "
-                "not copied yet")
         if block % 32 or not 32 <= block <= 1024:
             raise ValueError(f"block must be a multiple of 32 in [32, 1024],"
                              f" got {block}")
@@ -175,6 +178,7 @@ class TorchBackend(BackendBase):
         self.max_fused_ops = max_fused_ops
         self.max_fused_inputs = max_fused_inputs
         self.passes = passes
+        self.verify = verify
         self.kernel_cache = kernel_cache if kernel_cache is not None \
             else KernelCache()
         self.fused_calls = 0
@@ -381,8 +385,10 @@ class TorchBackend(BackendBase):
         the batch is the hart-level parallelism."""
         t0 = time.perf_counter()
         workload = self.optimize_workload(workload, verify=verify)
-        calls_before = self.fused_calls + self.reduce_calls
         self.host_s = {}
+        if self.verify if verify is None else verify:
+            self.host_s["verify_s"] = time.perf_counter() - t0
+        calls_before = self.fused_calls + self.reduce_calls
         cc_before = (self.kernel_cache.hits, self.kernel_cache.misses)
         groups = _group(workload.entries)
         entry_outputs: List[Optional[Dict[str, np.ndarray]]] = \

@@ -282,12 +282,30 @@ def test_compile_cache_hits_on_the_second_run():
 
 
 def test_verify_is_refused_not_skipped():
-    with pytest.raises(NotImplementedError):
-        TorchBackend(device="cpu", verify=True)
+    """verify=True runs the port's static analyzer: a broken program is
+    refused with the reference's KviVerificationError before anything
+    runs, and a clean one gives verify=False's outputs."""
+    import dataclasses
+
+    from repro_torch.kvi.analysis import KviVerificationError
     p = tk.program_from_reference(pipeline_demo_program(np.arange(8)))
-    with pytest.raises(NotImplementedError):
-        TorchBackend(device="cpu").run_workload(tk.KviWorkload.single(p),
+    idx, it = next((i, it) for i, it in enumerate(p.items)
+                   if isinstance(it, tk.KviInstr) and it.src1 is not None
+                   and it.src1.space == "vreg")
+    items = list(p.items)
+    items[idx] = dataclasses.replace(
+        it, src1=dataclasses.replace(it.src1, offset=10 ** 6))
+    bad = dataclasses.replace(p, items=tuple(items))
+    be = TorchBackend(device="cpu", verify=True)
+    with pytest.raises(KviVerificationError, match="KVI105"):
+        be.run_workload(tk.KviWorkload.single(bad))
+    assert be.fused_calls == be.reduce_calls == 0
+    with pytest.raises(KviVerificationError):
+        TorchBackend(device="cpu").run_workload(tk.KviWorkload.single(bad),
                                                 verify=True)
+    wl = tk.KviWorkload.single(p)
+    _assert_same_outputs(be.run_workload(wl),
+                         TorchBackend(device="cpu").run_workload(wl))
 
 
 def test_registry_and_meta():

@@ -327,7 +327,10 @@ def test_conv_refuses_a_filter_past_shared_memory(card):
                                   "fft_4096x1024", "composite_1024",
                                   "attn_hymba1.5b_swa_8192",
                                   "attn_mixtral_prefill_cont",
-                                  "ssd_mamba2-1.3b_4096"])
+                                  "ssd_mamba2-1.3b_4096",
+                                  "attn_pixtral12b_causal_4096",
+                                  "fft_256x65536", "matmul_f16_4096",
+                                  "matmul_int32_2048", "composite_512_f161"])
 def test_compute_kernel_equals_plain_at_card_scale(card, name):
     w = next(w for w in micro.CARD if w.name == name)
     x = micro.make_inputs(w, np.random.default_rng(7), card)
@@ -336,8 +339,10 @@ def test_compute_kernel_equals_plain_at_card_scale(card, name):
     tc_before = getattr(mod, "tc_launch_count", 0)
     out = micro.run_kernel(w, x)
     torch.cuda.synchronize()
-    # one launch a call (the composite too: ONE); the SSD scan's three
-    assert mod.launch_count == before + micro.launches_per_call(w.kernel)
+    # one launch a call (the composite too: ONE); the SSD scan's three;
+    # an FFT above 16384 points its stage passes, transform and gather
+    assert mod.launch_count == before + micro.launches_per_call(w.kernel,
+                                                                w.shape)
     assert getattr(mod, "tc_launch_count", 0) == \
         tc_before + micro.tensor_core_call(w)
     micro.compare_plain(w, x, out)
@@ -371,9 +376,13 @@ def test_compute_kernel_launch_errors_raise(card):
                                 x.data_ptr(), x.data_ptr(), 1, log2n, plan,
                                 rows, stream)
         assert rc != 0
-    with pytest.raises(ValueError, match="exceeds"):
-        sf.spm_fft(torch.zeros((1, 32768), device=card),
-                   torch.zeros((1, 32768), device=card))
+    # n = 2^15 itself is taken, through the large route (three launches)
+    before = sf.launch_count
+    re = torch.ones((1, 32768), device=card)
+    got = sf.spm_fft(re, torch.zeros_like(re))
+    torch.cuda.synchronize()
+    assert sf.launch_count == before + sf.launches_for(32768) == before + 3
+    assert got[0][0, 0].item() == 32768.0 and got[0][0, 1:].abs().max() == 0
 
 
 def test_lm_kernel_launch_errors_raise(card):
@@ -381,14 +390,21 @@ def test_lm_kernel_launch_errors_raise(card):
     error, and the wrappers raise before them; nothing falls back."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
-    x = torch.zeros((1, 2, 8, 200), device=card)
+    x = torch.zeros((1, 3, 8, 200), device=card)
     stream = torch.cuda.current_stream().cuda_stream
-    rc = fa._library().flash_attention_launch(
-        0, x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), 1, 2, 1,
-        8, 8, 200, 1, 0, 0, 0.1, stream)
-    assert rc != 0
-    with pytest.raises(ValueError, match="exceeds 128"):
-        fa.flash_attention(x, x[:, :1], x[:, :1])
+    # an unknown dtype; H 3 not a multiple of KV 2; hd 300 on the
+    # tensor-core kernel (its tiles stop at 256)
+    for launch, dtype, H, KV, hd in (
+            (fa._library().flash_attention_launch, 7, 2, 1, 64),
+            (fa._library().flash_attention_launch, 0, 3, 2, 64),
+            (fa._library().flash_attention_tc_launch, 1, 2, 1, 300)):
+        assert launch(dtype, x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                      x.data_ptr(), 1, H, KV, 8, 8, hd, 1, 0, 0, 0.1,
+                      stream) != 0
+    before = fa.launch_count
+    with pytest.raises(ValueError, match="multiple of KV"):
+        fa.flash_attention(x, x[:, :2], x[:, :2])
+    assert fa.launch_count == before
     lib, p = ss._library(), x.data_ptr()
     # S not a multiple of cs, for each of the three kernels
     assert lib.ssd_chunk_state_launch(0, p, p, p, p, p, p, 1, 100, 1, 4, 4,
@@ -397,17 +413,63 @@ def test_lm_kernel_launch_errors_raise(card):
                                      stream) != 0
     assert lib.ssd_chunk_scan_launch(0, p, p, p, p, p, p, p, 1, 100, 1, 4,
                                      4, 32, stream) != 0
-    # the chunk scan's 64 x N tile of C past 227 KB (N 656 at chunk 256)
-    assert max(ss.smem_bytes(656, 256).values()) > ss.MAX_SMEM
-    assert lib.ssd_chunk_scan_launch(0, p, p, p, p, p, p, p, 1, 256, 1, 4,
-                                     656, 256, stream) != 0
-    big = torch.zeros((1, 256, 1, 128), device=card)
-    dt = torch.zeros((1, 256, 1), device=card)
+    # a chunk whose per-step vectors pass 227 KB (cs 32768); N 656 is
+    # taken (the chunk scan streams C)
+    assert max(ss.smem_bytes(656, 32768).values()) > ss.MAX_SMEM
+    assert ss.streams_c(656, 256)
+    assert lib.ssd_chunk_state_launch(0, p, p, p, p, p, p, 1, 32768, 1, 4,
+                                      4, 32768, stream) != 0
+    assert lib.ssd_chunk_scan_launch(0, p, p, p, p, p, p, p, 1, 32768, 1, 4,
+                                     656, 32768, stream) != 0
+    big = torch.zeros((1, 32768, 1, 4), device=card)
+    dt = torch.zeros((1, 32768, 1), device=card)
     before = ss.launch_count
     with pytest.raises(ValueError, match="shared memory"):
-        ss.ssd_scan(big, dt, dt, torch.zeros((1, 256, 1, 656), device=card),
-                    torch.zeros((1, 256, 1, 656), device=card))
+        ss.ssd_scan(big, dt, dt, big, big, chunk=32768)
     assert ss.launch_count == before
+
+
+@pytest.mark.parametrize("name", sorted(checks.EDGE_CHECKS))
+def test_inputs_past_the_first_limits_equal_plain(card, name):
+    """Head widths above 128, float16, negative windows, the whole matmul
+    domain, FFTs above 16384 points, uint8 intrinsics, N 1024 SSD
+    states and a 161 x 161 composite filter: each against its plain
+    version on the card, each launching its kernel."""
+    out = checks.check_edge(np.random.default_rng(21), name, card)
+    assert out["launches"] == checks.EDGE_CHECKS[name][2]
+
+
+def test_verify_on_the_card(card):
+    """TorchBackend(verify=True) on the card: the analyzer, then the same
+    walk launches and outputs as verify=False; a mutant of the fuzz
+    catalog is refused before any kvi_walk launch."""
+    import dataclasses
+
+    from repro_torch.kvi.analysis import KviVerificationError
+    rng = np.random.default_rng(5)
+    progs = [conv2d_program(rng.integers(-64, 64, (8, 8)),
+                            np.ones((3, 3), np.int64), shift=2)
+             for _ in range(6)]
+    wl = tk.KviWorkload.homogeneous(progs)
+    off = TorchBackend(device=card).run_workload(wl)
+    be = TorchBackend(device=card, verify=True)
+    on = be.run_workload(wl)
+    assert be.walk_calls == 1 and "verify_s" in be.host_s
+    for g, w in zip(on.entry_results, off.entry_results):
+        for key, arr in w.outputs.items():
+            np.testing.assert_array_equal(g.outputs[key], arr)
+    p = progs[0]
+    idx, it = next((i, it) for i, it in enumerate(p.items)
+                   if isinstance(it, tk.KviInstr) and it.dst is not None
+                   and it.dst.space == "vreg")
+    items = list(p.items)
+    items[idx] = dataclasses.replace(it, dst=dataclasses.replace(
+        it.dst, offset=it.dst.offset + p.vregs[it.dst.id].length))
+    before = kw.launch_count
+    with pytest.raises(KviVerificationError):
+        be.run_workload(tk.KviWorkload.single(
+            dataclasses.replace(p, items=tuple(items))))
+    assert kw.launch_count == before
 
 
 @pytest.mark.parametrize("dtype", checks.LM_TYPES, ids=str)

@@ -7,8 +7,8 @@ CPU tensors the wrapper runs its plain version.
 
 Tolerance: the JAX test's rtol = atol = 2e-3
 (``tests/kernels/test_kernels.py:80``); a bf16 output adds one bf16 step
-(2^-7 relative), since the two float32 results may round to neighbouring
-bf16 values."""
+(2^-7 relative) and a float16 one a float16 step (2^-10), since the two
+float32 results may round to neighbouring values."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +23,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kvi import array_from_reference
 
 TOL = 2e-3
-BF16_STEP = 2.0 ** -7
+STEP = {"float32": 0.0, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
 # (B, H, KV, Sq, Skv, hd, causal, window, q_offset): G = H / KV in
 # {1, 2, 5}; no length a multiple of 64; Sq < Skv continues a prefill
@@ -34,6 +34,14 @@ CASES = [
     (1, 4, 2, 40, 120, 32, True, 0, 80),
     (1, 5, 1, 33, 70, 16, True, 16, 37),
     (1, 2, 1, 300, 300, 16, True, 0, 0),      # more than PLAIN_ROWS rows
+    # head widths past 128 (pixtral_12b / stablelm_12b: 160; 256)
+    (1, 4, 2, 40, 40, 160, True, 0, 0),
+    (1, 2, 1, 24, 30, 256, False, 0, 0),
+    # negative windows: the reference's `q_pos - k_pos < window` keeps
+    # the keys more than |window| ahead, none of them under causal
+    (1, 2, 1, 8, 8, 16, False, -2, 0),
+    (1, 4, 2, 70, 90, 32, False, -20, 5),
+    (1, 4, 2, 50, 70, 32, True, -3, 30),
 ]
 
 
@@ -49,16 +57,14 @@ def _qkv(rng, B, H, KV, Sq, Skv, hd, dtype):
             jnp.asarray(rng.normal(0, 1, (B, KV, Skv, hd)), dtype))
 
 
-def _close(got: torch.Tensor, want, bf16: bool):
+def _close(got: torch.Tensor, want, dtype: str):
     want = np.asarray(want).astype(np.float32)
-    tol = TOL + TOL * np.abs(want)
-    if bf16:
-        tol = tol + BF16_STEP * np.abs(want)
+    tol = TOL + (TOL + STEP[dtype]) * np.abs(want)
     err = np.abs(got.float().numpy() - want)
     assert np.all(err <= tol), f"max error {err.max()}"
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_vs_pallas(case, dtype):
     B, H, KV, Sq, Skv, hd, causal, window, off = case
@@ -70,7 +76,7 @@ def test_vs_pallas(case, dtype):
     got = ops.attention_op(tq, tk, tv, causal=causal, window=window,
                            q_offset=off)
     assert got.dtype == tq.dtype and tuple(got.shape) == want.shape
-    _close(got, want, dtype == "bfloat16")
+    _close(got, want, dtype)
 
 
 @pytest.mark.parametrize("case", CASES[:5], ids=_ids)
@@ -124,16 +130,39 @@ def test_visible_pairs_counts_the_mask():
 
 
 def test_rejects_what_the_kernel_does_not_take():
-    q = torch.zeros((1, 2, 8, 129))
-    with pytest.raises(ValueError, match="exceeds 128"):
-        fa.flash_attention(q, q[:, :1], q[:, :1])
+    """What the reference refuses too: H not a multiple of KV, 3-D
+    inputs, and dtypes past float32 / bf16 / float16 (float64, ints).
+    hd 129, float16 and negative windows are taken (test_vs_pallas,
+    test_the_probe_of_a_negative_window)."""
     q = torch.zeros((1, 3, 8, 16))
     with pytest.raises(ValueError, match="multiple of KV"):
         fa.flash_attention(q, q[:, :2], q[:, :2])
-    with pytest.raises(TypeError):
-        fa.flash_attention(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError, match="window"):
-        fa.flash_attention(q, q, q, window=-1)
+    with pytest.raises(ValueError, match="takes q"):
+        fa.flash_attention(q[0], q[0], q[0])
+    for dt in (torch.float64, torch.int32):
+        with pytest.raises(TypeError):
+            fa.flash_attention(q.to(dt), q.to(dt), q.to(dt))
+    q = torch.zeros((1, 2, 8, 129))
+    assert fa.flash_attention(q, q[:, :1], q[:, :1], window=-1).shape == \
+        q.shape
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_the_probe_of_a_negative_window(causal):
+    """q [1, 2, 8, 16], window -2: without causal, rows 0-4 see the keys
+    more than two ahead and rows 5-7 none (0); with causal every row is
+    0. Equal to the Pallas kernel within the JAX test's tolerance."""
+    q, k, v = _qkv(np.random.default_rng(3), 1, 2, 2, 8, 8, 16, jnp.float32)
+    want = np.asarray(jops.attention_op(q, k, v, causal=causal, window=-2,
+                                        interpret=True))
+    got = ops.attention_op(*(array_from_reference(a) for a in (q, k, v)),
+                           causal=causal, window=-2)
+    _close(got, want, "float32")
+    rows = got.abs().amax(dim=(0, 1, 3))
+    if causal:
+        assert rows.max().item() == 0.0 and np.abs(want).max() == 0.0
+    else:
+        assert bool((rows[:5] > 0).all()) and rows[5:].max().item() == 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,60 @@ def test_random_slot_programs_bit_exact_vs_pallas(eb, batched):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("batched", [False, True])
+def test_uint8_slot_programs_bit_exact_vs_pallas(batched):
+    """uint8 tensors, as the reference's intrinsics take them: add, sub
+    and mul wrap mod 256, ksrav shifts logically (a count of 8 or more
+    gives 0), the comparisons are unsigned; immediates in 0 .. 255."""
+    rng = np.random.default_rng(80 + batched)
+    for _ in range(4):
+        program, in_slots, out_slots, n_slots = checks.random_slot_program(
+            rng, 4, 24, torch.uint8, wide_imm=False)
+        shape = (3, 40) if batched else (40,)
+        xs = [rng.integers(0, 256, shape).astype(np.uint8) for _ in in_slots]
+        want = ref_fused_call(program, [(s, jnp.asarray(x))
+                                        for s, x in zip(in_slots, xs)],
+                              out_slots, n_slots=n_slots, batched=batched,
+                              interpret=True)
+        got = fv.fused_elementwise_call(program,
+                                        [(s, torch.from_numpy(x))
+                                         for s, x in zip(in_slots, xs)],
+                                        out_slots, n_slots=n_slots,
+                                        batched=batched)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.uint8 and tuple(g.shape) == shape
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_uint8_intrinsics_equal_the_reference():
+    """``ops``' element-wise intrinsics and ``fused_mac_relu`` on uint8,
+    against the reference's ``repro.kernels.ops`` (interpret mode)."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+    a = np.array([0, 1, 2, 100, 128, 200, 255], np.uint8)
+    b = np.array([255, 3, 1, 100, 127, 201, 0], np.uint8)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    cases = [("kaddv", (b,)), ("ksubv", (b,)), ("kvmul", (b,)),
+             ("kvslt", (b,)), ("krelu", ()), ("kvcp", ()),
+             ("ksvaddsc", (77,)), ("ksvmulsc", (3,)), ("ksrlv", (3,)),
+             ("ksrav", (3,)), ("ksrav", (9,)), ("ksrlv", (9,)),
+             ("ksvslt", (128,))]
+    for name, extra in cases:
+        targs = [torch.from_numpy(e) if isinstance(e, np.ndarray) else e
+                 for e in extra]
+        jargs = [jnp.asarray(e) if isinstance(e, np.ndarray) else e
+                 for e in extra]
+        got = getattr(tops, name)(ta, *targs)
+        want = np.asarray(getattr(jops, name)(ja, *jargs))
+        assert got.dtype == torch.uint8, name
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+    got = tops.fused_mac_relu(ta, tb, ta, 2)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jops.fused_mac_relu(ja, jb, ja, 2)))
+    assert got.tolist() == [0, 1, 1, 29, 0, 52, 63]
+
+
 def _one(op, x, imm=0, y=None):
     return fv.apply_vop(op, torch.tensor(x, dtype=torch.int8), None
                         if y is None else torch.tensor(y, dtype=torch.int8),
@@ -156,6 +210,6 @@ def test_cache_builds_once_and_plain_path_counts_no_launch():
 
 def test_shared_check_helpers_on_cpu():
     rng = np.random.default_rng(3)
-    for dt in TORCH_OF.values():
+    for dt in (*TORCH_OF.values(), torch.uint8):
         assert checks.check_fused(rng, dt, 4, 16, "cpu") == 0
         assert checks.check_fused(rng, dt, 4, 16, "cpu", hazard=True) == 0

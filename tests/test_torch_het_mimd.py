@@ -27,8 +27,11 @@ def _case(rng, H, W, F, nb, n, m, k, p, padded_zero):
 @pytest.mark.parametrize("case", [
     dict(H=32, W=32, F=3, nb=4, n=128, m=32, k=48, p=16, padded_zero=True),
     dict(H=32, W=32, F=3, nb=4, n=256, m=64, k=64, p=64, padded_zero=False),
-    dict(H=21, W=13, F=4, nb=3, n=32, m=7, k=9, p=11, padded_zero=True)],
-    ids=["jax_test", "paper", "even_filter"])
+    dict(H=21, W=13, F=4, nb=3, n=32, m=7, k=9, p=11, padded_zero=True),
+    # a filter past the old conv hart's limit of 154 (streamed rows;
+    # the Pallas kernel traces its 25 600 taps for about 3 minutes)
+    dict(H=9, W=40, F=160, nb=2, n=16, m=5, k=6, p=7, padded_zero=False)],
+    ids=["jax_test", "paper", "even_filter", "f160"])
 def test_vs_pallas(case):
     ops = _case(np.random.default_rng(7), **case)
     want = [np.asarray(x) for x in pallas_composite(
@@ -52,6 +55,26 @@ def test_vs_pallas(case):
             conv, np.asarray(jref.conv2d_ref(jnp.asarray(inner),
                                              jnp.asarray(ops[1]))),
             rtol=1e-3, atol=1e-3)
+
+
+def test_odd_large_filter_vs_the_reference_oracles():
+    """F = 161 on a zero-padded image: the conv part equals the
+    reference's conv2d_ref (run eagerly: the same float32 taps in (fr, fc)
+    order), the FFT and matmul parts its oracles."""
+    case = dict(H=33, W=5, F=161, nb=1, n=8, m=3, k=2, p=4)
+    ops = _case(np.random.default_rng(8), padded_zero=True, **case)
+    conv, ore, oim, mm = (g.numpy() for g in hm.het_mimd_composite(
+        *[array_from_reference(x) for x in ops]))
+    F = case["F"]
+    inner = ops[0][F // 2:F // 2 + case["H"], F // 2:F // 2 + case["W"]]
+    np.testing.assert_allclose(
+        conv, np.asarray(jref.conv2d_ref(jnp.asarray(inner),
+                                         jnp.asarray(ops[1]))),
+        rtol=1e-3, atol=1e-3)
+    wre, wim = jref.fft_ref(jnp.asarray(ops[2]), jnp.asarray(ops[3]))
+    np.testing.assert_allclose(ore, np.asarray(wre), rtol=1e-3, atol=0.2)
+    np.testing.assert_allclose(oim, np.asarray(wim), rtol=1e-3, atol=0.2)
+    np.testing.assert_allclose(mm, ops[4] @ ops[5], rtol=1e-4, atol=1e-4)
 
 
 def test_operands_of_other_dtypes_give_float32():
@@ -80,10 +103,20 @@ def test_rejects_bad_operands():
 
 
 def test_rejects_a_filter_the_conv_tile_cannot_stage():
-    """The conv hart stages a (31 + F)^2 window and the filter in shared
-    memory: F = 155 no longer fits (232 448 bytes a block)."""
+    """Up to STREAM_F the conv hart stages a (31 + F)^2 window and the
+    filter; above it, one input row of 31 + F floats, so F = 155, past
+    the old limit, is taken, and only a row past a block's 232 448 bytes
+    (F above 58 000) is refused."""
     z = torch.zeros
     assert hm.check_tile_filter(z(154, 154), z(160, 160)) == 154
+    assert hm.check_tile_filter(z(155, 155), z(160, 160)) == 155
+    assert not hm.conv_streamed(hm.STREAM_F) and hm.conv_streamed(155)
+    assert hm.conv_smem_bytes(hm.STREAM_F) == \
+        ((31 + hm.STREAM_F) ** 2 + hm.STREAM_F ** 2) * 4
+    assert hm.conv_smem_bytes(161) == (31 + 161) * 4
+    conv, *_ = hm.het_mimd_composite(z(160, 160), z(155, 155), z(1, 4),
+                                     z(1, 4), z(2, 2), z(2, 2))
+    assert tuple(conv.shape) == (6, 6)
+    huge = torch.zeros(()).expand(60_000, 60_000)
     with pytest.raises(ValueError, match="shared memory"):
-        hm.het_mimd_composite(z(160, 160), z(155, 155), z(1, 4), z(1, 4),
-                              z(2, 2), z(2, 2))
+        hm.check_tile_filter(huge, huge)

@@ -23,7 +23,7 @@ def _operands(rng, dtype, n):
 
 
 @pytest.mark.parametrize("n", [256, 4096])
-@pytest.mark.parametrize("dtype", INT_TYPES)
+@pytest.mark.parametrize("dtype", INT_TYPES + (np.uint8,))
 @pytest.mark.parametrize("shift", [0, 7])
 def test_kdotp_family_bit_exact_vs_pallas(dtype, shift, n):
     """Full-range operands, so the int32 accumulator wraps: the public
@@ -41,6 +41,20 @@ def test_kdotp_family_bit_exact_vs_pallas(dtype, shift, n):
     assert got.dtype == torch.int32
     assert int(got) == int(want) == int(ref_ops.kdotp_ref(ja, jb, shift))
     assert int(kd.kvred(ta)) == int(ref_kd.kvred(ja, interpret=True))
+
+
+def test_uint8_widens_without_sign():
+    """300 lanes of 255: kdotp 19507500 and kvred 76500 in int32, as the
+    reference's astype(int32) gives them; kdotpps shifts after."""
+    a = np.full(300, 255, np.uint8)
+    ta, ja = torch.from_numpy(a), jnp.asarray(a)
+    got = (kd.kdotp(ta, ta), kd.kvred(ta), kd.kdotpps(ta, ta, 4))
+    want = (ref_kd.kdotp(ja, ja, interpret=True),
+            ref_kd.kvred(ja, interpret=True),
+            ref_kd.kdotpps(ja, ja, 4, interpret=True))
+    assert all(g.dtype == torch.int32 for g in got)
+    assert [int(g) for g in got] == [int(w) for w in want] == \
+        [19507500, 76500, 19507500 >> 4]
 
 
 @pytest.mark.parametrize("shift", [0, 3])

@@ -15,7 +15,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import micro
+from repro_torch.kernels import checks, micro
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kvi import array_from_reference
@@ -204,6 +204,48 @@ def test_chip_smoke_compute_phase_rehearsed_on_the_cpu(capsys):
                      for k in smoke.TC_KERNELS}
     assert err == dict.fromkeys(micro.MODULES, 0.0)
     assert capsys.readouterr().out.count("[slice2]") == len(tiny)
+
+
+def test_chip_smoke_compute_phase_takes_the_repaired_inputs(capsys):
+    """``run_compute_slice`` on the new rows' kinds at tiny shapes:
+    float16 and int32 products, head width 160, an FFT above 16384
+    points, a 161 x 161 composite filter; each equal to its plain version
+    and its numpy formula."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    W = micro.Workload
+    tiny = [W("mm_f16", "spm_matmul", dict(M=40, K=70, N=33,
+                                           dtype="float16"), ""),
+            W("mm_i32", "spm_matmul", dict(M=40, K=70, N=33, dtype="int32"),
+              ""),
+            W("attn_hd160", "flash_attention",
+              dict(B=1, H=4, KV=2, Sq=70, Skv=70, hd=160,
+                   dtype="bfloat16"), ""),
+            W("fft_32768", "spm_fft", dict(B=2, n=32768), ""),
+            W("composite_f161", "het_mimd", dict(H=20, W=9, F=161, nb=2,
+                                                 n=64, m=9, k=7, p=5), "")]
+    _, launches, err, _ = smoke.run_compute_slice(
+        "cpu", np.random.default_rng(1), tiny)
+    assert launches == dict.fromkeys(micro.MODULES, 0)
+    assert err == dict.fromkeys(micro.MODULES, 0.0)
+    assert capsys.readouterr().out.count("[slice2]") == len(tiny)
+    assert micro.launches_per_call("spm_fft", dict(n=65536)) == 4
+    assert micro.launches_per_call("spm_fft", dict(n=256)) == 1
+    rows = {w.name: w for w in micro.CARD}
+    assert micro.tensor_core_call(rows["attn_pixtral12b_causal_4096"])
+    assert micro.tensor_core_call(rows["matmul_f16_4096"])
+    assert not micro.tensor_core_call(rows["matmul_int32_2048"])
+
+
+@pytest.mark.parametrize("name", sorted(checks.EDGE_CHECKS))
+def test_edge_checks_rehearsed_on_the_cpu(name):
+    """Each of ``checks.EDGE_CHECKS`` (the card's checks of the inputs
+    past the first kernels' limits) on the CPU: plain version against
+    plain version, no launch counted."""
+    out = checks.check_edge(np.random.default_rng(3), name, "cpu")
+    assert out == {"max_abs_err": 0.0, "launches": 0}
 
 
 def test_chip_smoke_conv_formula_samples_rows_of_large_work():

@@ -59,11 +59,78 @@ def test_integer_planes_are_taken_as_float32():
     np.testing.assert_allclose(gim.numpy(), want.imag, atol=1e-4)
 
 
-@pytest.mark.parametrize("n", [3, 12, 32768])
+@pytest.mark.parametrize("n", [3, 12, 0])
 def test_rejects_unsupported_lengths(n):
+    """Lengths that are not a power of two, as the reference's _bitrev
+    refuses them; n above 16384 is taken (test_large_n_vs_pallas)."""
     x = torch.zeros((1, n))
     with pytest.raises(ValueError):
         sf.spm_fft(x, x)
+
+
+@pytest.mark.parametrize("B,n", [(2, 32768), (1, 65536)])
+def test_large_n_vs_pallas(B, n):
+    """n above one block's shared memory, against the Pallas kernel in
+    interpret mode at the JAX test's tolerance."""
+    rng = np.random.default_rng(n + B)
+    re = rng.normal(0, 1, (B, n)).astype(np.float32)
+    im = rng.normal(0, 1, (B, n)).astype(np.float32)
+    wre, wim = (np.asarray(x) for x in jops.fft_op(jnp.asarray(re),
+                                                   jnp.asarray(im)))
+    gre, gim = sf.spm_fft(torch.from_numpy(re), torch.from_numpy(im))
+    for got, want in ((gre.numpy(), wre), (gim.numpy(), wim)):
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3 * n)
+
+
+def _large_route_model(re, im):
+    """``spm_fft_large``'s three launch kinds in numpy float32, index for
+    index: the global stages (a thread a butterfly), the 16384-point
+    transform on each block (``spm_fft_plain`` over the 2^s B rows:
+    ``test_pass_model_equals_plain_bit_for_bit`` holds the kernel to it),
+    and the gather out[a 2^s + c] = sub[bitrev_s(c) 2^14 + a]."""
+    B, n = re.shape
+    log2n = n.bit_length() - 1
+    s = log2n - sf.LOG2_MAX_N
+    tw = sf.twiddles(n, "cpu").numpy()
+    xr, xi = re.reshape(-1).copy(), im.reshape(-1).copy()
+    f32 = np.float32
+    for log2h in range(log2n - 1, sf.LOG2_MAX_N - 1, -1):
+        h = 1 << log2h
+        t = np.arange(B * n // 2, dtype=np.int64)
+        row, rem = t >> (log2n - 1), t & (n // 2 - 1)
+        k = rem & (h - 1)
+        a = (row << log2n) + ((rem >> log2h) << (log2h + 1)) + k
+        b = a + h
+        wr, wi = tw[0, h - 1 + k], tw[1, h - 1 + k]
+        dr, di = f32(xr[a] - xr[b]), f32(xi[a] - xi[b])
+        xr[a], xi[a] = xr[a] + xr[b], xi[a] + xi[b]
+        xr[b] = f32(dr * wr) - f32(di * wi)
+        xi[b] = f32(dr * wi) + f32(di * wr)
+    sub = sf.spm_fft_plain(torch.from_numpy(xr.reshape(B << s, sf.MAX_N)),
+                           torch.from_numpy(xi.reshape(B << s, sf.MAX_N)))
+    sr, si = (x.numpy().reshape(-1) for x in sub)
+    t = np.arange(B * n, dtype=np.int64)
+    row, src = t >> log2n, t & (n - 1)
+    c, a = src >> sf.LOG2_MAX_N, src & (sf.MAX_N - 1)
+    cr = np.array([int(f"{int(v):0{s}b}"[::-1], 2) for v in range(1 << s)])
+    dst = (row << log2n) + (a << s) + cr[c]
+    ore, oim = np.empty_like(sr), np.empty_like(si)
+    ore[dst], oim[dst] = sr, si
+    return ore.reshape(B, n), oim.reshape(B, n)
+
+
+@pytest.mark.parametrize("B,n", [(2, 32768), (1, 131072)])
+def test_large_route_equals_plain_bit_for_bit(B, n):
+    rng = np.random.default_rng(n - B)
+    re = rng.normal(0, 1, (B, n)).astype(np.float32)
+    im = rng.normal(0, 1, (B, n)).astype(np.float32)
+    got = _large_route_model(re, im)
+    want = sf.spm_fft_plain(torch.from_numpy(re), torch.from_numpy(im))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.int32),
+                                      w.numpy().view(np.int32))
+    assert sf.launches_for(n) == n.bit_length() - 1 - 14 + 2
+    assert sf.launches_for(16384) == sf.launches_for(2) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -18,13 +18,19 @@ from repro_torch.kvi import array_from_reference
 
 SHAPES = [(64, 64, 64), (33, 65, 17), (128, 96, 160)]
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-         "int8": torch.int8, "int32": torch.int32}
+         "int8": torch.int8, "int32": torch.int32, "float16": torch.float16,
+         "int16": torch.int16, "uint8": torch.uint8}
+#: integer operands of the float32-accumulating types: sums below 2^24,
+#: so exact in any order; int16 and uint8 outputs saturate
+INT_RANGE = {"int8": (-128, 128), "int16": (-100, 100),
+             "int32": (-100, 100), "uint8": (0, 16)}
 
 
 def _operands(rng, M, K, N, dtype):
-    if dtype == "int8":
-        return (jnp.asarray(rng.integers(-128, 128, (M, K)), jnp.int8),
-                jnp.asarray(rng.integers(-128, 128, (K, N)), jnp.int8))
+    if dtype in INT_RANGE:
+        lo, hi = INT_RANGE[dtype]
+        return (jnp.asarray(rng.integers(lo, hi, (M, K)), dtype),
+                jnp.asarray(rng.integers(lo, hi, (K, N)), dtype))
     return (jnp.asarray(rng.normal(0, 1, (M, K)), dtype),
             jnp.asarray(rng.normal(0, 1, (K, N)), dtype))
 
@@ -33,7 +39,20 @@ def _operands(rng, M, K, N, dtype):
     ("float32", None, "float32", 1e-4),
     ("bfloat16", None, "bfloat16", 3e-2),        # the JAX test's
     ("bfloat16", "float32", "float32", 1e-4),
-    ("int8", None, "int32", 0)])
+    ("int8", None, "int32", 0),
+    # the rest of the reference's domain: float16, int16, int32, uint8
+    # (float32 sums cast back), int8 into other out_dtypes (the int32
+    # sum cast: floats through float32, narrower ints wrapped)
+    ("float16", None, "float16", 3e-2),
+    ("int16", None, "int16", 0),
+    ("int32", None, "int32", 0),
+    ("uint8", None, "uint8", 0),
+    ("int16", "float32", "float32", 0),
+    ("int8", "float32", "float32", 0),
+    ("int8", "bfloat16", "bfloat16", 0),
+    ("int8", "float16", "float16", 0),
+    ("int8", "int16", "int16", 0),
+    ("int8", "uint8", "uint8", 0)])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_vs_pallas(shape, dtype, out_dtype, want_dtype, tol):
     rng = np.random.default_rng(sum(shape))
@@ -44,8 +63,9 @@ def test_vs_pallas(shape, dtype, out_dtype, want_dtype, tol):
     got = sm.spm_matmul(array_from_reference(ja), array_from_reference(jb),
                         out_dtype=out_dtype and TORCH[out_dtype])
     assert got.dtype == TORCH[want_dtype] and tuple(got.shape) == want.shape
-    if dtype == "int8":
-        np.testing.assert_array_equal(got.numpy(), want)
+    if tol == 0:
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      want.astype(np.float32))
     else:
         np.testing.assert_allclose(got.float().numpy(),
                                    want.astype(np.float32), rtol=tol,
@@ -89,16 +109,63 @@ def test_float32_check_rejects_a_tf32_product(shape):
 
 
 def test_rejects_what_the_kernel_does_not_take():
+    """What the reference refuses too: mismatched shapes and dtypes, and
+    64-bit types (the reference without jax's x64 mode holds none).
+    float16, int16 and int8 into float32 are taken
+    (test_vs_pallas, test_the_probes_of_the_float32_accumulator)."""
     a8 = torch.zeros((2, 3), dtype=torch.int8)
+    for dt in (torch.int64, torch.float64):
+        with pytest.raises(TypeError):
+            sm.spm_matmul(a8.to(dt), torch.zeros((3, 2), dtype=dt))
     with pytest.raises(TypeError):
-        sm.spm_matmul(a8, torch.zeros((3, 2), dtype=torch.int8),
-                      out_dtype=torch.float32)
-    with pytest.raises(TypeError):
-        sm.spm_matmul(a8.half(), torch.zeros((3, 2), dtype=torch.half))
+        sm.spm_matmul(a8, a8.t(), out_dtype=torch.int64)
     with pytest.raises(ValueError):
         sm.spm_matmul(a8, torch.zeros((4, 2), dtype=torch.int8))
     with pytest.raises(ValueError):
         sm.spm_matmul(a8, torch.zeros((3, 2), dtype=torch.int16))
+
+
+PROBES = {
+    # (1 << 24) + 1 rounds to 2^24 as it is converted to float32
+    "int32_rounds": (np.array([[(1 << 24) + 1]], np.int32),
+                     np.array([[1]], np.int32), None, [[16777216]]),
+    # 128 x 2^20 x 2^10 = 2^37: the cast back saturates, either sign
+    "int32_saturates": (np.full((1, 128), 1 << 20, np.int32),
+                        np.array([[1 << 10, -(1 << 10)]] * 128, np.int32),
+                        None, [[2147483647, -2147483648]]),
+    "uint8_stays_uint8": (np.array([[200, 3]], np.uint8),
+                          np.array([[2], [1]], np.uint8), None, [[255]]),
+    "int16_saturates": (np.array([[-200]], np.int16),
+                        np.array([[300]], np.int16), None, [[-32768]]),
+    "float16_into_int32": (np.array([[1.5]], np.float16),
+                           np.array([[3]], np.float16), "int32", [[4]]),
+    "nan_into_int32": (np.array([[np.nan, 1]], np.float32),
+                       np.array([[1], [1]], np.float32), "int32", [[0]]),
+    "int8_into_float32": (np.full((1, 130), 127, np.int8),
+                          np.full((130, 1), 127, np.int8), "float32",
+                          [[2096770.0]]),
+    "int8_into_float16": (np.full((1, 130), 127, np.int8),
+                          np.full((130, 1), 127, np.int8), "float16",
+                          [[np.inf]]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROBES))
+def test_the_probes_of_the_float32_accumulator(name):
+    """The reference's results at the edges of its casts, bit for bit:
+    the Pallas kernel in interpret mode, the port's plain version, and
+    the values the reference gives."""
+    a, b, od, value = PROBES[name]
+    want = np.asarray(pallas_matmul(
+        jnp.asarray(a), jnp.asarray(b), interpret=True,
+        out_dtype=None if od is None else jnp.dtype(od)))
+    got = sm.spm_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                        out_dtype=od and TORCH[od])
+    assert str(got.dtype).split(".")[1] == str(want.dtype)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  want.astype(np.float32))
+    np.testing.assert_array_equal(want.astype(np.float64),
+                                  np.asarray(value, np.float64))
 
 
 TC_SHAPES = [(256, 512, 384), (1, 1, 1), (33, 65, 17), (129, 257, 63),
@@ -147,8 +214,9 @@ def test_int8_wrap_check():
 
 
 def test_bf16_and_int8_take_the_tensor_cores_and_float32_the_cuda_cores():
-    assert sm.uses_tensor_cores(torch.bfloat16)
-    assert sm.uses_tensor_cores(torch.int8)
-    assert not sm.uses_tensor_cores(torch.float32)
+    for dt in (torch.bfloat16, torch.float16, torch.int8):
+        assert sm.uses_tensor_cores(dt)
+    for dt in (torch.float32, torch.int32, torch.int16, torch.uint8):
+        assert not sm.uses_tensor_cores(dt)
     assert checks.case_paths("spm_matmul") == {"tensor_cores": 3,
                                                "cuda_cores": 1}

@@ -81,6 +81,30 @@ def test_bf16_x_gives_bf16_y():
     _close(state, s_p)
 
 
+def test_float16_x_gives_float16_y():
+    """float16 x, as the reference takes it: y in float16 (one float16
+    step, 2^-10, on top of the JAX test's tolerance), the state float32."""
+    args = _inputs(np.random.default_rng(5), 2, 64, 4, 16, 8, 2,
+                   jnp.float16)
+    y_p, s_p = jops.ssd_scan_op(*args, chunk=16, interpret=True)
+    y, state = ops.ssd_scan_op(*_port(args), chunk=16)
+    assert y.dtype == torch.float16 and state.dtype == torch.float32
+    want = np.asarray(y_p).astype(np.float32)
+    err = np.abs(y.float().numpy() - want)
+    assert np.all(err <= TOL + (TOL + 2.0 ** -10) * np.abs(want))
+    _close(state, s_p)
+
+
+def test_wide_state_vs_pallas():
+    """N past the old card limit of 608 (N 640, chunk 64 here; the card
+    runs N 1024 at chunk 256), against the Pallas kernel."""
+    args = _inputs(np.random.default_rng(6), 1, 128, 2, 8, 640, 1)
+    y_p, s_p = jops.ssd_scan_op(*args, chunk=64, interpret=True)
+    y, state = ops.ssd_scan_op(*_port(args), chunk=64)
+    _close(y, y_p)
+    _close(state, s_p)
+
+
 def test_kernel_signature_vs_pallas_kernel():
     """``ssd_scan`` itself (da = dt A and head-broadcast B / C given)."""
     Bz, S, H, P, N = 1, 96, 3, 8, 4
@@ -132,15 +156,20 @@ def test_shared_memory_of_the_mamba2_row():
     """The kernels' shared memory at the mamba2-1.3b row (N 128, P 64,
     chunk 256): each at most 110 KB, so two blocks fit an SM's 228 KB.
     P takes none (it is tiled in the grid), so N 256 with P 128 fits
-    too; the chunk scan's 64 x N tile of C reaches a block's 227 KB past
-    N 608."""
+    too; the chunk scan's 64 x N tile of C would reach a block's 227 KB
+    past N 608, so from N 609 the scan streams C and its shared memory
+    stops growing with N."""
     row = ss.smem_bytes(128, 256)
     assert row == {"ssd_chunk_state": 37888, "ssd_state_pass": 0,
                    "ssd_chunk_scan": 97792}
     assert 2 * max(row.values()) <= 228 * 1024
     assert max(ss.smem_bytes(256, 256).values()) <= ss.MAX_SMEM
-    assert max(ss.smem_bytes(608, 256).values()) <= ss.MAX_SMEM \
-        < max(ss.smem_bytes(609, 256).values())
+    assert not ss.streams_c(608, 256) and ss.streams_c(609, 256)
+    assert max(ss.smem_bytes(608, 256).values()) <= ss.MAX_SMEM
+    wide = [ss.smem_bytes(n, 256) for n in (609, 1024, 1 << 16)]
+    assert wide[0] == wide[1] == wide[2]
+    assert wide[0]["ssd_chunk_scan"] == 4 * (6 * 32 * 68 + 2 * 64 * 68
+                                             + 2 * 256)
     assert ss.smem_bytes(128, 64)["ssd_chunk_state"] < row["ssd_chunk_state"]
 
 
