@@ -69,6 +69,25 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    ``req_per_s``, p50 / p99 cycles, the cache counts, the walk launches
    and each run's split: the backend's calls, their host split (stack /
    walk / unpack) and the garbage collector's seconds and collections;
+3t. telemetry — the same server with ``Obs.on()`` on the backend and the
+   engine (three rounds of a run with telemetry off and one with it on,
+   each on a fresh backend): canonical reports byte-equal with telemetry
+   on and off; trace and metrics valid (kvi-trace-v1, kvi-metrics-v1);
+   256 request flows; ``torch.walk_launches`` equal to the ``kvi_walk``
+   launches of the run (59 at seed 0); ``scheduler.admitted`` 256; the
+   latency histogram's p50 / p99 the report's; the card's canonical
+   trace byte-equal to the CPU backend's. Then ``python -m
+   repro_torch.kvi.serving``'s ``main`` with ``--trace-out`` /
+   ``--metrics-out`` (``python -m repro_torch.kvi.obs validate`` gives 0,
+   ``view`` prints the report's makespan); one live ``Obs`` on phase 3's
+   backend over every phase-3 workload (one ``("torch", "run_workload")``
+   span a run, its args the run's ``meta`` and walk launches, the
+   ``torch.*`` counters their sums); the disabled path
+   (``obs=NULL_OBS`` against ``obs=None`` on warm ``pipeline_demo`` runs,
+   the least of 15 paired ratios at most 1.02); the enabled cost
+   (traced over untraced ``execute_s``, the least of 3 each). A
+   ``[telemetry]`` line holds the counts of trace events and metrics,
+   the ratios and the trace's bytes;
 3v. verify — every phase-3 workload at phase 3's widths again, through
    ``TorchBackend(verify=True)`` (the static analyzer over every
    instance, then the walk) beside phase 3's ``verify=False`` backend:
@@ -112,14 +131,16 @@ are the card's name and power limit, a JSON object of kernel numbers
 path; the SSD scan as its three kernels, each with the whole call under
 ``scan``; ``kvi_walk`` with every main-path structure under
 ``workloads``, serving's launches and device ms by bucket size under
-``serving`` and phase 3v's launches and analyzer seconds under
-``verified``) and ``{"ok": true, "device": {...}}``.
+``serving``, phase 3t's numbers under ``telemetry`` and phase 3v's
+launches and analyzer seconds under ``verified``) and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -316,15 +337,16 @@ def run_slice(device, rng, scale=1, log=print):
     """Phase 3: drive every main-path workload twice (cold, then warm)
     through ``get_backend("torch").run_workload`` on ``device`` and check
     both runs. The prototypes are optimized once and their instances run
-    with ``passes=()``, as serving templates do. Returns the backend and
-    one record per workload."""
+    with ``passes=()``, as serving templates do. Returns the backend, one
+    record per workload and the ``(name, workload)`` pairs."""
     import torch
     from repro_torch.kvi import get_backend
     be = get_backend("torch", device=device, passes=())
     cpu = get_backend("torch", device="cpu", passes=())
     on_card = torch.device(device).type == "cuda"
-    records = []
+    records, workloads = [], []
     for name, wl, want in main_path_workloads(rng, scale):
+        workloads.append((name, wl))
         walks = [be.walk_calls]
 
         def run(wl=wl, walks=walks):
@@ -369,7 +391,7 @@ def run_slice(device, rng, scale=1, log=print):
         del cold, warm, runs
         if on_card:
             torch.cuda.empty_cache()
-    return be, records
+    return be, records, workloads
 
 
 def mutant_workload(rng, n: int = 8):
@@ -895,6 +917,263 @@ def run_serve(device, seed, log=print):
         runs=splits, deterministic=True, served_equal_oracle=len(first),
         oracle_entries=compared, device_ms_by_bucket=by_bucket)
     log(f"[serve] {json.dumps(rec)}")
+    return rec
+
+
+#: phase 3t's disabled-path gates: ``TorchBackend(obs=NULL_OBS)`` against
+#: ``obs=None`` on warm runs of one phase-3 workload. The reference's form:
+#: the least of ``pairs`` back-to-back paired ratios, each side ``runs``
+#: runs. On the card also the median of ``rounds`` interleaved ratios,
+#: each round one run a side in the order None, NULL_OBS, NULL_OBS, None
+#: (drift cancels), which resolves a 2 % overhead; the same rounds of
+#: ``obs=None`` against a second ``obs=None`` backend are the control
+TELEMETRY_GATE = dict(workload="pipeline_demo", pairs=15, runs=5,
+                      rounds=200, bound=1.02)
+
+
+def _backend_spans(obs, be, workloads):
+    """Phase 3t's backend span: one live ``obs`` on ``be`` (phase 3's
+    warm backend) over every phase-3 workload. Each run must add exactly
+    one ``("torch", "run_workload")`` span whose args equal the run's
+    ``meta`` and walk launches, and the ``torch.*`` counters must sum
+    over the runs. Returns the runs' walk launches."""
+    from repro_torch.kvi.obs import validate_trace
+    tr = obs.tracer
+    sums = {"runs": 0, "kernel_launches": 0, "walk_launches": 0,
+            "compile_cache.hits": 0, "compile_cache.misses": 0}
+    walls = []
+    be.obs = obs
+    try:
+        for name, wl in workloads:
+            n0, w0 = len(tr.events), be.walk_calls
+            res = be.run_workload(wl)
+            walks = be.walk_calls - w0
+            new = tr.events[n0:]
+            want = {"entries": len(wl.entries),
+                    "groups": res.meta["groups"],
+                    "kernel_launches": res.meta["kernel_launches"],
+                    "walk_launches": walks}
+            if len(new) != 1 or new[0]["name"] != "run_workload" or \
+                    new[0]["clock"] != "wall" or new[0].get("args") != want:
+                raise AssertionError(f"{name}: backend spans {new}, want one "
+                                     f"run_workload span with args {want}")
+            sums["runs"] += 1
+            sums["kernel_launches"] += res.meta["kernel_launches"]
+            sums["walk_launches"] += walks
+            for k in ("hits", "misses"):
+                sums[f"compile_cache.{k}"] += res.meta["compile_cache"][k]
+            walls.append(res.meta["wall_s"])
+            del res
+    finally:
+        be.obs = None
+    trace = tr.to_chrome()
+    errs = validate_trace(trace)
+    tracks = {(ev["args"]["name"]) for ev in trace["traceEvents"]
+              if ev["ph"] == "M"}
+    snap = obs.metrics.snapshot()
+    got = {k: snap["counters"].get(f"torch.{k}") for k in sums}
+    hist = snap["histograms"]["torch.run_wall_s"]
+    if errs or tracks != {"torch", "run_workload"} or got != sums or \
+            hist["count"] != len(walls) or sorted(
+                float(k) for k, n in hist["buckets"].items()
+                for _ in range(n)) != sorted(walls):
+        raise AssertionError(f"backend telemetry over phase 3: {errs[:3]}, "
+                             f"tracks {tracks}, counters {got} against "
+                             f"{sums}, wall histogram {hist['count']} of "
+                             f"{len(walls)}")
+    return sums["walk_launches"]
+
+
+def _disabled_ratios(device, wl, rounds):
+    """The disabled path's cost on warm runs of ``wl``
+    (:data:`TELEMETRY_GATE`): ``pairs`` paired ratios of
+    ``TorchBackend(obs=NULL_OBS)`` over ``TorchBackend(obs=None)``, each
+    side ``runs`` runs back to back (as the reference's 2 % gate times
+    its cycle simulator), whose least must be within the bound; then
+    ``rounds`` interleaved ratios, NULL_OBS and the control (a second
+    ``obs=None`` backend) each over ``obs=None``, whose NULL_OBS median
+    must be within the bound on the card (a shared CPU host swings too
+    far for it). Returns the three lists of ratios."""
+    import torch
+    from repro_torch.kvi import get_backend
+    from repro_torch.kvi.obs import NULL_OBS, NULL_TRACER
+    base = get_backend("torch", device=device, passes=())
+    nul = get_backend("torch", device=device, passes=(), obs=NULL_OBS)
+    twin = get_backend("torch", device=device, passes=())
+    for b in (base, nul, twin, base, nul, twin):    # build the walks, warm
+        b.run_workload(wl)
+
+    def sample(be, runs):
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            be.run_workload(wl)
+        return time.perf_counter() - t0
+
+    def interleaved(other):
+        out = []
+        for _ in range(rounds):
+            t = [sample(be, 1) for be in (base, other, other, base)]
+            out.append((t[1] + t[2]) / (t[0] + t[3]))
+        return out
+    runs = TELEMETRY_GATE["runs"]
+    pairs = [sample(nul, runs) / sample(base, runs)
+             for _ in range(TELEMETRY_GATE["pairs"])]
+    inter, control = interleaved(nul), interleaved(twin)
+    if NULL_TRACER.events or NULL_OBS.metrics.snapshot()["counters"]:
+        raise AssertionError("the disabled bundle recorded something")
+    bound = TELEMETRY_GATE["bound"]
+    on_card = torch.device(device).type == "cuda"
+    if min(pairs) > bound or (on_card and np.median(inter) > bound):
+        raise AssertionError(f"obs=NULL_OBS over obs=None: least paired "
+                             f"ratio {min(pairs)}, median interleaved "
+                             f"{np.median(inter)} (control "
+                             f"{np.median(control)}), bound {bound}")
+    return pairs, inter, control
+
+
+def run_telemetry(device, seed, workloads, be, requests=None, rounds=3,
+                  gate_rounds=TELEMETRY_GATE["rounds"], log=print):
+    """Phase 3t: telemetry on the card. Serving at :data:`SERVE`
+    (``requests`` cuts the stream) in ``rounds`` rounds of a run with
+    telemetry off and one with ``Obs.on()`` on ``get_backend("torch",
+    obs=...)`` and the engine, each on a fresh backend: the canonical
+    reports byte-equal; every traced run's trace and metrics valid, its
+    flows one a request, ``torch.walk_launches`` equal to the walk
+    kernel's launch count over the run (one per bucket and prewarm batch:
+    59 at seed 0), ``scheduler.admitted`` every request, the latency
+    histogram's p50 / p99 the report's, and its canonical trace byte-equal
+    to the same run's on the CPU backend. Then the CLI with
+    ``--trace-out`` / ``--metrics-out`` (``python -m repro_torch.kvi.obs
+    validate`` gives 0 on both files; ``view`` prints the report's
+    makespan; the trace canonically the engine run's); the backend span
+    over every phase-3 ``workloads`` entry on ``be``; the disabled-path
+    gates (:data:`TELEMETRY_GATE`, ``gate_rounds`` interleaved rounds);
+    and the enabled cost, the least traced ``execute_s`` over the least
+    untraced one. Returns the record: every number in it measured or
+    counted by this run."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import kvi_walk as kw
+    from repro_torch.kvi import get_backend
+    from repro_torch.kvi.obs import (Obs, canonical_trace, validate_metrics,
+                                     validate_trace)
+    from repro_torch.kvi.obs.__main__ import flow_summary
+    from repro_torch.kvi.obs.__main__ import main as obs_main
+    from repro_torch.kvi.serving import (DEFAULT_MIX, ServeEngine,
+                                         canonical_report, make_templates,
+                                         poisson_arrivals)
+    from repro_torch.kvi.serving.__main__ import main as serve_main
+    n = SERVE["requests"] if requests is None else requests
+    on_card = torch.device(device).type == "cuda"
+    templates = make_templates(DEFAULT_MIX, smoke=False, seed=seed)
+    specs = poisson_arrivals(templates, n, SERVE["gap"],
+                             n_clients=SERVE["clients"], seed=seed)
+
+    def serve(obs, dev=device):
+        b = get_backend("torch", passes=(), obs=obs, device=dev)
+        w0 = kw.launch_count
+        rep = ServeEngine(templates, n_harts=SERVE["harts"], backend=b,
+                          max_batch=SERVE["max_batch"], seed=seed,
+                          obs=obs).run(specs)
+        if on_card:
+            torch.cuda.synchronize()
+        return rep, kw.launch_count - w0
+
+    def canon(obs):
+        return json.dumps(canonical_trace(obs.tracer.to_chrome()),
+                          sort_keys=True)
+
+    off_s, on_s, traced = [], [], None
+    for _ in range(rounds):
+        rep_off, _ = serve(None)
+        obs = Obs.on()
+        rep, walks = serve(obs)
+        off_s.append(rep_off["throughput"]["execute_s"])
+        on_s.append(rep["throughput"]["execute_s"])
+        if canonical_report(rep) != canonical_report(rep_off):
+            raise AssertionError("telemetry changed the canonical report")
+        trace, snap = obs.tracer.to_chrome(), obs.metrics.snapshot()
+        errs = validate_trace(trace) + validate_metrics(snap)
+        flows = flow_summary(trace["traceEvents"])
+        prewarm = len(templates) * SERVE["max_batch"].bit_length()
+        want_walks = (sum(rep["batch_sizes"].values()) + prewarm
+                      if on_card else 0)
+        lat = snap["histograms"]["serving.latency_cycles"]
+        got = dict(errors=errs[:3], flows=flows["requests"],
+                   walk_launches=snap["counters"]["torch.walk_launches"],
+                   admitted=snap["counters"]["scheduler.admitted"],
+                   p50_p99=(lat["p50"], lat["p99"]))
+        want = dict(errors=[], flows=n, walk_launches=walks,
+                    admitted=n, p50_p99=(rep["latency_cycles"]["p50"],
+                                         rep["latency_cycles"]["p99"]))
+        if got != want or walks != want_walks or (
+                on_card and seed == 0 and n == 256 and walks != 59):
+            raise AssertionError(f"served telemetry {got}, want {want} and "
+                                 f"{want_walks} walk launches")
+        if traced is None:
+            traced = (rep, obs, trace, snap, walks)
+    rep, obs, trace, snap, walks = traced
+    cpu_obs = Obs.on()
+    serve(cpu_obs, "cpu")
+    if canon(cpu_obs) != canon(obs):
+        raise AssertionError("the card's canonical trace differs from the "
+                             "CPU backend's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: str(Path(tmp) / f"{k}.json")
+                 for k in ("trace", "metrics", "report")}
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = serve_main(["--device", str(device), "--requests", str(n),
+                             "--seed", str(seed), "--trace-out",
+                             paths["trace"], "--metrics-out",
+                             paths["metrics"], "--out", paths["report"]])
+            rc_valid = obs_main(["validate", paths["trace"], "--metrics",
+                                 paths["metrics"]])
+            mark = out.tell()
+            rc_view = obs_main(["view", paths["trace"], "--metrics",
+                                paths["metrics"]])
+        viewed = out.getvalue()[mark:]
+        cli_rep = json.loads(Path(paths["report"]).read_text())
+        makespan = cli_rep["throughput"]["makespan_cycles"]
+        with open(paths["trace"]) as f:
+            cli_canon = json.dumps(canonical_trace(json.load(f)),
+                                   sort_keys=True)
+        trace_bytes = Path(paths["trace"]).stat().st_size
+    if (rc, rc_valid, rc_view) != (0, 0, 0) or \
+            f"makespan={makespan} cycles" not in viewed or \
+            makespan != rep["throughput"]["makespan_cycles"] or \
+            cli_canon != canon(obs):
+        raise AssertionError(f"the CLI with --trace-out / --metrics-out: "
+                             f"exit codes {rc, rc_valid, rc_view}, makespan "
+                             f"{makespan} in view: "
+                             f"{f'makespan={makespan} cycles' in viewed}, "
+                             f"trace canonically the engine run's: "
+                             f"{cli_canon == canon(obs)}")
+
+    w0 = kw.launch_count
+    span_walks = _backend_spans(Obs.on(), be, workloads)
+    if kw.launch_count - w0 != span_walks:
+        raise AssertionError(f"backend spans count {span_walks} walk "
+                             f"launches, the kernel {kw.launch_count - w0}")
+    gate_wl = dict(workloads)[TELEMETRY_GATE["workload"]]
+    pairs, inter, control = _disabled_ratios(device, gate_wl, gate_rounds)
+    rec = dict(
+        events=len(trace["traceEvents"]),
+        metrics=sum(len(snap[k]) for k in ("counters", "gauges",
+                                           "histograms")),
+        trace_bytes=trace_bytes, flows=n, walk_launches=walks,
+        backend_runs=len(workloads), backend_walk_launches=span_walks,
+        disabled_ratio=min(pairs),
+        disabled_ratio_median=float(np.median(pairs)),
+        disabled_interleaved_median=float(np.median(inter)),
+        control_interleaved_median=float(np.median(control)),
+        execute_s=dict(off=off_s, on=on_s),
+        enabled_over_disabled=min(on_s) / max(min(off_s), 1e-9))
+    log(f"[telemetry] {json.dumps(rec)}")
     return rec
 
 
@@ -1489,8 +1768,8 @@ def main(argv=None) -> int:
 
     # 3. slice 1 on the card -----------------------------------------------
     fv.launch_count = kd.launch_count = kw.launch_count = 0
-    be_off, records = run_slice(device, rng,
-                                log=lambda m: print(f"{m}; card: {card}"))
+    be_off, records, phase3 = run_slice(
+        device, rng, log=lambda m: print(f"{m}; card: {card}"))
     launches = {"kvi_walk": kw.launch_count}
     walked = sum(r["walk_launches"] for r in records)
     if fv.launch_count or kd.launch_count:
@@ -1522,6 +1801,20 @@ def main(argv=None) -> int:
                         log=lambda m: print(f"{m}; card: {card}"))
 
     stamp("serve")
+
+    # 3t. telemetry on the card --------------------------------------------
+    fv.launch_count = kd.launch_count = kw.launch_count = 0
+    telemetry = run_telemetry(device, args.seed, phase3, be_off,
+                              log=lambda m: print(f"{m}; card: {card}"))
+    torch.cuda.synchronize()
+    del phase3
+    if fv.launch_count or kd.launch_count or not kw.launch_count:
+        raise AssertionError(f"phase 3t: kvi_walk {kw.launch_count}, "
+                             f"fused_vops {fv.launch_count}, kdotp "
+                             f"{kd.launch_count} launches")
+    telemetry["phase_walk_launches"] = kw.launch_count
+
+    stamp("telemetry")
 
     # 3v. slice 1 under verify=True ---------------------------------------
     kw.launch_count = 0
@@ -1572,6 +1865,7 @@ def main(argv=None) -> int:
                                  launches=serving["walk_launches"],
                                  device_ms_by_bucket=serving[
                                      "device_ms_by_bucket"]),
+                             telemetry=telemetry,
                              verified=dict(
                                  launches=launches["kvi_walk_verified"],
                                  analyzer_host_s={
@@ -1621,7 +1915,7 @@ def main(argv=None) -> int:
                                         "plain_call_ms", "library_call_ms",
                                         "shape")})
         for extra in ("kvred", "workloads", "scan", "also_replaces",
-                      "serving", "verified"):
+                      "serving", "telemetry", "verified"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in paths:

@@ -26,8 +26,8 @@ tests (e.g. sym-MIMD cycles <= het-MIMD cycles <= shared cycles).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Sequence, Union
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Union
 
 from repro_torch.configs.base import KlessydraConfig
 from repro_torch.core.isa import Instr, Scalar, lsu_cycles, mfu_cycles
@@ -64,6 +64,34 @@ class HartStats:
     def breakdown(self) -> Dict[str, int]:
         return {"busy": self.busy_cycles, "stall": self.stall_cycles,
                 "idle": self.idle_cycles, "total": self.total_cycles}
+
+
+@dataclass
+class SimRecorder:
+    """Optional per-event capture for one :meth:`Simulator.run` call —
+    the raw material cycle-accurate timeline traces are built from
+    (:mod:`repro_torch.kvi.obs`). Recording is opt-in: with
+    ``recorder=None`` (the default everywhere) the simulator's inner loop
+    executes the exact uninstrumented path, so the disabled overhead is a
+    handful of ``is not None`` branches (pinned < 2% by tests).
+
+    All intervals are half-open ``[start, end)`` in simulated cycles:
+
+      instrs  — (hart, op name, engine, start, end, chained) per
+                coprocessor instruction's occupancy,
+      scalars — (hart, start, end, count) per scalar block,
+      waits   — (hart, op name, start, end) per issue stall (the hart
+                wanted to issue ``op`` at ``start`` but could not until
+                ``end`` — resource busy or slot alignment),
+      holds   — (resource key, start, end) per resource acquisition
+                (SPMI streams, LSU port, and the per-internal-unit FU
+                instances het-MIMD harts contend on).
+    """
+
+    instrs: List[tuple] = field(default_factory=list)
+    scalars: List[tuple] = field(default_factory=list)
+    waits: List[tuple] = field(default_factory=list)
+    holds: List[tuple] = field(default_factory=list)
 
 
 @dataclass
@@ -195,7 +223,8 @@ class Simulator:
                       for k in range(cfg.F * cfg.fu_count(uname)))
         return [((("spmi", hart),), spmi_c), (units, unit_c)]
 
-    def run(self, programs: Sequence[Sequence[Item]]) -> SimResult:
+    def run(self, programs: Sequence[Sequence[Item]],
+            recorder: Optional[SimRecorder] = None) -> SimResult:
         """The event loop (the reference's optimized ``Simulator.run``;
         the port's tests hold it to the reference cycle for cycle). Its
         wins over a straight-line loop are structural, not behavioral:
@@ -216,6 +245,7 @@ class Simulator:
             the scan, the hottest code in every DSE confirmation.
         """
         cfg = self.cfg
+        rec = recorder
         H = cfg.harts
         assert len(programs) <= H, "more programs than harts"
         busy_until: Dict[tuple, int] = {}
@@ -278,6 +308,8 @@ class Simulator:
                 st.instructions += n
                 if n:
                     scalar_runs[h].append((t, n))
+                    if rec is not None:
+                        rec.scalars.append((h, t, end, n))
             else:
                 st.instructions += 1
                 ns = next_slot[h]
@@ -293,6 +325,14 @@ class Simulator:
                     busy_until[k] = t + dur
                     if t + dur > end:
                         end = t + dur
+                    if rec is not None:
+                        rec.holds.append((k, t, t + dur))
+                if rec is not None:
+                    if t > ns:
+                        rec.waits.append((h, it.op, ns, t))
+                    rec.instrs.append(
+                        (h, it.op, it.engine, t, end,
+                         getattr(it, "chain_discount", 0) > 0))
                 if it.engine == "lsu":
                     st.lsu_ops += 1
                     lsu_busy += end - t
@@ -323,5 +363,6 @@ class Simulator:
 
 
 def simulate(config: KlessydraConfig,
-             programs: Sequence[Sequence[Item]]) -> SimResult:
-    return Simulator(config).run(programs)
+             programs: Sequence[Sequence[Item]],
+             recorder: Optional[SimRecorder] = None) -> SimResult:
+    return Simulator(config).run(programs, recorder=recorder)

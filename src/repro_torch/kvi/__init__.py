@@ -15,8 +15,12 @@ instances at once; with ``device="cpu"`` the walk's plain PyTorch version
 runs instead. ``oracle`` is the paper's MFU datapath in numpy
 (:mod:`repro_torch.core.mfu`), reached through :func:`lower`, the
 binding of a program's vregs to scratchpad addresses (an impossible fit
-raises :class:`SpmOverflowError`). Request-driven serving is
-:mod:`repro_torch.kvi.serving` (``python -m repro_torch.kvi.serving``).
+raises :class:`SpmOverflowError`). ``cyclesim``
+(:class:`~repro_torch.kvi.cyclesim.CycleSimBackend`) adds the cycle
+counts of the paper's three coprocessor schemes. Request-driven serving is
+:mod:`repro_torch.kvi.serving` (``python -m repro_torch.kvi.serving``);
+telemetry (``obs=``, a Chrome trace and a metrics snapshot) is
+:mod:`repro_torch.kvi.obs` (``python -m repro_torch.kvi.obs``).
 """
 from repro_torch.kvi.backend import (Backend, BackendBase, BackendResult,
                                      available_backends, get_backend,

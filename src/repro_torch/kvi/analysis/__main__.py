@@ -79,11 +79,9 @@ def main(argv=None) -> int:
     else:
         ap.error("name at least one target, or pass --all / --list")
 
-    # the reference's scheme_config("shared", ...): one SPMI, one MFU
-    # (the port's DSE, which holds scheme_config, is not copied yet)
-    from repro_torch.configs.base import KlessydraConfig
-    config = KlessydraConfig("lint", M=1, F=1, D=args.D,
-                             spm_kbytes=args.spm_kbytes)
+    from repro_torch.kvi.dse.space import scheme_config
+    config = scheme_config("shared", D=args.D,
+                           spm_kbytes=args.spm_kbytes, name="lint")
 
     reports = {}
     for name in targets:

@@ -8,9 +8,11 @@ by ``run_workload()``, which returns a
 ``run()`` wraps the program into a one-entry workload.
 
 The port keeps its own registry: ``get_backend("torch")`` builds the
-:class:`~repro_torch.kvi.torch_backend.TorchBackend`, and
+:class:`~repro_torch.kvi.torch_backend.TorchBackend`,
 ``get_backend("oracle")`` the numpy MFU datapath
-(:class:`~repro_torch.kvi.oracle.OracleBackend`). Nothing here is
+(:class:`~repro_torch.kvi.oracle.OracleBackend`), and
+``get_backend("cyclesim")`` the cycle-accurate scheme model
+(:class:`~repro_torch.kvi.cyclesim.CycleSimBackend`). Nothing here is
 shared with, or registered in, the reference package.
 """
 from __future__ import annotations
@@ -33,8 +35,8 @@ class BackendResult:
 
     outputs — every ``mem_out`` buffer of the program, by name, reshaped
               to its declared shape.
-    timing  — scheme name -> cycle result (timing backends only; none in
-              the port yet).
+    timing  — scheme name -> cycle result (timing backends only: the
+              ``cyclesim`` backend).
     backend — the producing backend's registered name.
     """
 
@@ -120,23 +122,6 @@ class BackendBase:
         return workload.map_programs(pipe.run)
 
 
-#: why a live telemetry bundle is refused: the port has neither the
-#: tracer and metrics nor the reference's hooks that feed them, and no
-#: span is dropped in silence
-TELEMETRY_MISSING = (
-    "telemetry (obs=, --trace-out, --metrics-out) needs the reference's "
-    "tracer and metrics (repro.kvi.obs), which the port has not copied "
-    "yet: ROADMAP.md queue 1 item 4")
-
-
-def refuse_obs(obs) -> None:
-    """Raise ``NotImplementedError`` for a telemetry bundle: the port
-    takes ``obs=None`` where the reference takes an ``Obs``, and nothing
-    else until its tracer and metrics are copied."""
-    if obs is not None:
-        raise NotImplementedError(TELEMETRY_MISSING)
-
-
 _REGISTRY: Dict[str, Callable[..., Backend]] = {}
 
 
@@ -171,4 +156,4 @@ def _ensure_builtin_backends():
     """Import the built-in backend modules so their ``@register_backend``
     decorators run. An import error propagates: a backend that fails to
     import is a fault, not an absent option."""
-    from repro_torch.kvi import oracle, torch_backend  # noqa: F401
+    from repro_torch.kvi import cyclesim, oracle, torch_backend  # noqa: F401

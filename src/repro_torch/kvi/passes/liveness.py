@@ -9,11 +9,10 @@ is exactly what the downstream consumers need:
     ``dce`` pass (an instruction is dead when nothing it writes can reach
     an output buffer),
   * :func:`reg_intervals` — first-touch/last-touch live ranges feeding
-    the linear-scan SPM allocator of the reference's ``repro.kvi.lowering``,
-    which the port has not copied yet (two vregs
-    with disjoint ranges may share scratchpad lines),
+    the linear-scan SPM allocator of :mod:`repro_torch.kvi.lowering`
+    (two vregs with disjoint ranges may share scratchpad lines),
   * :func:`peak_live_bytes` — the allocator's true capacity requirement,
-    reported by the reference's ``SpmOverflowError``.
+    reported by ``SpmOverflowError``.
 
 Memory buffers are tracked alongside: a ``kmemstr`` is observable when
 its target buffer is a program output *or* is loaded again later; a

@@ -14,14 +14,13 @@ not delay conv instances landing on the other two.
 Estimates come from a solo cycle simulation of each distinct program
 (cached by structure), so packing reflects real kernel latencies rather
 than instruction counts; the *final* timing of the packed workload — with
-true inter-hart contention per scheme — comes from the reference's
-``CycleSimBackend.run_workload`` (the port has no cycle-sim backend; its
-``torch`` backend runs the packed workload for values).
+true inter-hart contention per scheme — comes from running it through
+``CycleSimBackend.run_workload``.
 
     sched = HartScheduler(n_harts=3)
     for p in programs:
         sched.submit(p)
-    result = sched.run(get_backend("oracle"))     # dispatch + execute
+    result = sched.run(get_backend("cyclesim"))   # dispatch + execute
     # or, to inspect the packing first:
     #   workload = sched.dispatch()               # drains the queue
     #   result = backend.run_workload(workload)
@@ -36,7 +35,6 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 from repro_torch.configs.base import KlessydraConfig
-from repro_torch.kvi.backend import refuse_obs
 from repro_torch.kvi.ir import KviProgram
 from repro_torch.kvi.lowering import TraceCache, lower
 from repro_torch.kvi.workload import (HartAssignment, KviWorkload,
@@ -119,9 +117,9 @@ class HartScheduler:
         self._estimator = estimator
         self._est_cfg = est_config or _EST_CFG
         self.trace_cache = trace_cache
-        # the reference's telemetry bundle: refused until the port copies
-        # it (ROADMAP.md queue 1 item 4 adds it with its hooks)
-        refuse_obs(obs)
+        # optional telemetry bundle (repro_torch.kvi.obs.Obs): ticket spans on
+        # per-hart scheduler lanes + admission counters / queue gauge
+        self.obs = obs
         self._est_cache: Dict[tuple, int] = {}   # structure -> cycles
         self._tids = itertools.count()
         self.queue: List[Ticket] = []
@@ -146,6 +144,10 @@ class HartScheduler:
         """Queue one program; returns its ticket."""
         t = Ticket(next(self._tids), program, self.estimate(program))
         self.queue.append(t)
+        if self.obs is not None and self.obs.enabled:
+            self.obs.metrics.counter("scheduler.submitted").inc()
+            self.obs.metrics.gauge("scheduler.queue_depth").set(
+                len(self.queue))
         return t
 
     def admit(self, program: KviProgram, now: int = 0,
@@ -163,6 +165,7 @@ class HartScheduler:
         t = Ticket(next(self._tids), program, est, hart=h, start_est=start)
         self.hart_free[h] = start + est
         self.dispatched.append(t)
+        self._record_ticket(t)
         return t
 
     # ------------------------------------------------------------------
@@ -188,11 +191,26 @@ class HartScheduler:
             t.hart, t.start_est = h, load
             heapq.heappush(loads, (load + t.est_cycles, next(seq), h))
             entries.append(WorkloadEntry(t.program, HartAssignment(h)))
+            self._record_ticket(t)
         self.dispatched.extend(self.queue)
         self.queue = []
         return KviWorkload(name, tuple(entries),
                            meta={"scheduler": "earliest_finish",
                                  "n_harts": self.n_harts})
+
+    def _record_ticket(self, t: Ticket) -> None:
+        """Telemetry for one placed ticket: an estimated-occupancy span
+        on the ticket's hart lane plus admission counters."""
+        if self.obs is None or not self.obs.enabled:
+            return
+        self.obs.tracer.span(
+            ("scheduler", f"hart{t.hart}"),
+            getattr(t.program, "name", None) or f"ticket{t.tid}",
+            t.start_est, t.est_cycles, cat="ticket",
+            args={"tid": t.tid})
+        self.obs.metrics.counter("scheduler.admitted").inc()
+        self.obs.metrics.histogram("scheduler.est_cycles").observe(
+            t.est_cycles)
 
     def run(self, backend, name: str = "scheduled") -> WorkloadResult:
         """Dispatch whatever is queued and execute it on ``backend``."""

@@ -12,8 +12,10 @@ card by default (it raises without one; there is no CPU fallback),
 ``--device cpu`` for the walk kernel's plain version. ``--no-backend``
 runs schedule-only (no device): all cycle-domain metrics, no wall-clock
 execution. ``--save-trace`` persists the generated Poisson arrivals for
-replay with ``--trace``. ``--trace-out`` / ``--metrics-out`` need the
-telemetry layer, which the port has not copied yet: they exit non-zero.
+replay with ``--trace``. ``--trace-out`` / ``--metrics-out`` run with a
+live telemetry bundle (:class:`repro_torch.kvi.obs.Obs`) and save its
+Chrome trace and metrics snapshot; ``python -m repro_torch.kvi.obs
+view`` / ``validate`` read them.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ import json
 import sys
 from typing import List, Optional
 
-from repro_torch.kvi.backend import TELEMETRY_MISSING
 from repro_torch.kvi.serving.engine import ServeEngine, canonical_report
 from repro_torch.kvi.serving.load import (DEFAULT_MIX, SMOKE_MIX,
                                           load_trace, make_templates,
@@ -73,9 +74,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.trace_out or args.metrics_out:
-        print(f"error: {TELEMETRY_MISSING}", file=sys.stderr)
-        return 2
     mix = SMOKE_MIX if args.smoke else DEFAULT_MIX
     templates = make_templates(mix, smoke=args.smoke, seed=args.seed)
 
@@ -90,16 +88,28 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.save_trace:
         save_trace(specs, args.save_trace)
 
+    obs = None
+    if args.trace_out or args.metrics_out:
+        from repro_torch.kvi.obs import Obs
+        obs = Obs.on()
+
     backend = None
     if not args.no_backend:
         from repro_torch.kvi.backend import get_backend
-        backend = get_backend("torch", passes=(), device=args.device)
+        backend = get_backend("torch", passes=(), obs=obs,
+                              device=args.device)
 
     engine = ServeEngine(templates, n_harts=args.harts, backend=backend,
                          batching=not args.no_batching,
                          max_batch=args.max_batch, seed=args.seed,
-                         prewarm=not args.no_prewarm)
+                         prewarm=not args.no_prewarm, obs=obs)
     report = engine.run(specs)
+    if obs is not None:
+        obs.save(trace_path=args.trace_out,
+                 metrics_path=args.metrics_out)
+        for path in (args.trace_out, args.metrics_out):
+            if path:
+                print(f"telemetry -> {path}", file=sys.stderr)
     text = canonical_report(report) if args.canonical else \
         json.dumps(report, indent=2, sort_keys=True)
     if args.out:

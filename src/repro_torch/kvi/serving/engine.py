@@ -42,7 +42,6 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.kvi.backend import refuse_obs
 from repro_torch.kvi.lowering import TraceCache
 # the volatile-key set and scrubber live in the obs layer, as in the
 # reference; SERVE_VOLATILE stays importable from here
@@ -145,13 +144,14 @@ class ServeEngine:
         self.max_batch = max_batch
         self.seed = seed
         self.prewarm = prewarm
-        # the reference's telemetry bundle: refused until the port copies
-        # it (ROADMAP.md queue 1 item 4 adds it with its hooks)
-        refuse_obs(obs)
+        # optional telemetry bundle (repro_torch.kvi.obs.Obs): request flows,
+        # step/wall spans and latency metrics; shared with the scheduler
+        # so ticket spans land in the same trace
+        self.obs = obs
         self.scheduler = HartScheduler(
             n_harts=n_harts,
             trace_cache=trace_cache if trace_cache is not None
-            else TraceCache())
+            else TraceCache(), obs=obs)
         self.requests: List[ServedRequest] = []
         self.steps: List[StepRecord] = []
         self._warm_rids = 0              # prewarm instance counter
@@ -208,6 +208,9 @@ class ServeEngine:
         """Serve the whole arrival stream; returns the report dict
         (see :meth:`report`)."""
         t_engine = time.perf_counter()
+        obs_on = self.obs is not None and self.obs.enabled
+        req_base = len(self.requests)    # flow-id offset across runs
+        step_base = len(self.steps)
         specs = sorted(specs, key=lambda s: (s.t,))
         reqs = []
         for rid, s in enumerate(specs):
@@ -217,7 +220,11 @@ class ServeEngine:
                     f"request {rid} wants template {s.template_key!r}; "
                     f"engine serves {sorted(self.templates)}")
             reqs.append(ServedRequest(rid, s, tpl))
+        pw_start = self.obs.tracer.wall_us() if obs_on else 0.0
         prewarm_s = self.prewarm_buckets() if self.prewarm else 0.0
+        if obs_on and prewarm_s:
+            self.obs.tracer.wall_span(("serving", "wall"), "prewarm",
+                                      pw_start)
 
         execute_s = 0.0
         i = 0
@@ -243,10 +250,15 @@ class ServeEngine:
             for r in wave:
                 groups.setdefault(r.template.name, []).append(r)
             t0 = time.perf_counter()
+            ex_start = self.obs.tracer.wall_us() if obs_on else 0.0
             for name in sorted(groups):
                 self._execute_group(self.templates[name], groups[name],
                                     step)
             execute_s += time.perf_counter() - t0
+            if obs_on and self.backend is not None and groups:
+                self.obs.tracer.wall_span(
+                    ("serving", "wall"), f"execute.step{step_no}",
+                    ex_start, args={"wave": len(wave)})
             self.steps.append(step)
             step_no += 1
             if i < len(reqs):
@@ -254,8 +266,52 @@ class ServeEngine:
                 # frees; arrivals in between accumulate into the wave
                 now = max(now, min(sched.hart_free))
         self.requests.extend(reqs)
-        return self.report(prewarm_s=prewarm_s, execute_s=execute_s,
-                           engine_s=time.perf_counter() - t_engine)
+        report = self.report(prewarm_s=prewarm_s, execute_s=execute_s,
+                             engine_s=time.perf_counter() - t_engine)
+        if obs_on:
+            self._emit_telemetry(reqs, req_base, step_base, report)
+        return report
+
+    def _emit_telemetry(self, reqs: List[ServedRequest], req_base: int,
+                        step_base: int, report: Dict[str, object]) -> None:
+        """One run's worth of cycle-domain telemetry: per-request flow
+        arrows (arrival -> hart admission -> estimated completion),
+        batching-window spans, and the latency/throughput metrics. The
+        flow events alone reconstruct the report's makespan and latency
+        percentiles — ``python -m repro_torch.kvi.obs view`` recomputes them
+        and the tests cross-check against this report."""
+        tr = self.obs.tracer
+        for r in reqs:
+            fid = req_base + r.rid
+            hart_track = ("scheduler", f"hart{r.ticket.hart}")
+            tr.flow_start(("serving", "arrivals"), f"req{fid}",
+                          r.spec.t, fid,
+                          args={"template": r.template.name,
+                                "client": r.spec.client})
+            tr.flow_step(hart_track, f"req{fid}", r.ticket.start_est, fid)
+            tr.flow_end(hart_track, f"req{fid}", r.ticket.finish_est, fid)
+        makespan = report["throughput"]["makespan_cycles"]
+        new_steps = self.steps[step_base:]
+        for j, s in enumerate(new_steps):
+            end = new_steps[j + 1].now if j + 1 < len(new_steps) \
+                else max(makespan, s.now)
+            tr.span(("serving", "steps"), f"step{s.step}", s.now,
+                    max(0, end - s.now), cat="step",
+                    args={"wave": s.wave_size,
+                          "buckets": list(s.buckets)})
+
+        m = self.obs.metrics
+        m.counter("serving.requests").inc(len(reqs))
+        m.counter("serving.steps").inc(len(new_steps))
+        hist = m.histogram("serving.latency_cycles")
+        for r in reqs:
+            hist.observe(r.latency_cycles)
+        m.gauge("serving.makespan_cycles").set(makespan)
+        cc = report.get("compile_cache")
+        if cc:
+            m.absorb("serving.compile_cache",
+                     {k: cc[k] for k in ("hits", "misses", "entries",
+                                         "loop_misses")})
 
     # ------------------------------------------------------------------
     def report(self, prewarm_s: float = 0.0, execute_s: float = 0.0,

@@ -40,7 +40,7 @@ from repro_torch.kernels import kvi_walk as _kw
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.fused_vops import Windows, program_words
 from repro_torch.kvi.backend import (BackendBase, BackendResult,
-                                     refuse_obs, register_backend)
+                                     register_backend)
 from repro_torch.kvi.ir import KviInstr, KviOp, KviProgram, ScalarBlock
 from repro_torch.kvi.passes.fusion import (MAX_FUSED_INPUTS, MAX_FUSED_OPS,
                                            META_KEY, FusedRegion, FusionPlan,
@@ -147,9 +147,14 @@ class TorchBackend(BackendBase):
     ``KviVerificationError`` and launches nothing; the pass pipeline then
     re-verifies after every pass.
 
-    ``obs`` is the reference's telemetry bundle: ``None`` is accepted as
-    the reference's call passes it; a live bundle raises
-    ``NotImplementedError`` until the port copies the telemetry layer.
+    ``obs`` is an optional telemetry bundle
+    (:class:`repro_torch.kvi.obs.Obs`): when enabled, every
+    ``run_workload`` emits one wall-clock ``("torch", "run_workload")``
+    span (args: ``entries``, ``groups``, ``kernel_launches`` and
+    ``walk_launches``, the run's walk-kernel launches) and feeds the
+    ``torch.runs`` / ``torch.kernel_launches`` / ``torch.walk_launches``
+    counters, ``torch.compile_cache.{hits,misses}`` and the
+    ``torch.run_wall_s`` histogram.
 
     Counts: ``fused_calls`` / ``reduce_calls`` count the regions and
     reductions walked, one each per batch of N instances — the
@@ -169,7 +174,6 @@ class TorchBackend(BackendBase):
                  max_fused_inputs: int = MAX_FUSED_INPUTS,
                  passes=None, verify: bool = False,
                  kernel_cache: Optional[KernelCache] = None, obs=None):
-        refuse_obs(obs)
         if block % 32 or not 32 <= block <= 1024:
             raise ValueError(f"block must be a multiple of 32 in [32, 1024],"
                              f" got {block}")
@@ -179,6 +183,7 @@ class TorchBackend(BackendBase):
         self.max_fused_inputs = max_fused_inputs
         self.passes = passes
         self.verify = verify
+        self.obs = obs
         self.kernel_cache = kernel_cache if kernel_cache is not None \
             else KernelCache()
         self.fused_calls = 0
@@ -389,6 +394,7 @@ class TorchBackend(BackendBase):
         if self.verify if verify is None else verify:
             self.host_s["verify_s"] = time.perf_counter() - t0
         calls_before = self.fused_calls + self.reduce_calls
+        walks_before = self.walk_calls
         cc_before = (self.kernel_cache.hits, self.kernel_cache.misses)
         groups = _group(workload.entries)
         entry_outputs: List[Optional[Dict[str, np.ndarray]]] = \
@@ -401,16 +407,30 @@ class TorchBackend(BackendBase):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall_s = round(time.perf_counter() - t0, 6)
+        calls = self.fused_calls + self.reduce_calls - calls_before
+        cc = {"hits": self.kernel_cache.hits - cc_before[0],
+              "misses": self.kernel_cache.misses - cc_before[1]}
+        if self.obs is not None and self.obs.enabled:
+            walks = self.walk_calls - walks_before
+            tr = self.obs.tracer
+            start_us = tr.wall_us() - wall_s * 1e6
+            tr.span(("torch", "run_workload"), "run_workload",
+                    round(max(0.0, start_us), 3), round(wall_s * 1e6, 3),
+                    cat="wall", clock="wall",
+                    args={"entries": len(workload.entries),
+                          "groups": len(groups), "kernel_launches": calls,
+                          "walk_launches": walks})
+            m = self.obs.metrics
+            m.counter("torch.runs").inc()
+            m.counter("torch.kernel_launches").inc(calls)
+            m.counter("torch.walk_launches").inc(walks)
+            m.absorb("torch.compile_cache", cc)
+            m.histogram("torch.run_wall_s").observe(wall_s)
         return WorkloadResult(
             self.name, workload,
             tuple(BackendResult(self.name, out) for out in entry_outputs),
-            meta={"groups": len(groups),
-                  "kernel_launches": (self.fused_calls + self.reduce_calls
-                                      - calls_before),
-                  "compile_cache": {
-                      "hits": self.kernel_cache.hits - cc_before[0],
-                      "misses": self.kernel_cache.misses - cc_before[1]},
-                  "wall_s": wall_s})
+            meta={"groups": len(groups), "kernel_launches": calls,
+                  "compile_cache": cc, "wall_s": wall_s})
 
 
 def _group(entries) -> Dict[tuple, List[int]]:

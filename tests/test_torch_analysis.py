@@ -609,7 +609,7 @@ def test_chip_smoke_verify_phase_rehearsed_on_the_cpu(capsys):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     rng = np.random.default_rng(0)
-    be_off, records = smoke.run_slice("cpu", rng, scale=64)
+    be_off, records, _ = smoke.run_slice("cpu", rng, scale=64)
     verified = smoke.run_verify("cpu", rng, be_off, {
         r["phase"]: r["warm_wall_s"] for r in records}, scale=64)
     assert [r["phase"] for r in verified] == [r["phase"] for r in records]

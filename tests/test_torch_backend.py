@@ -309,7 +309,7 @@ def test_verify_is_refused_not_skipped():
 
 
 def test_registry_and_meta():
-    assert set(tk.available_backends()) == {"oracle", "torch"}
+    assert set(tk.available_backends()) == {"oracle", "torch", "cyclesim"}
     be = tk.get_backend("torch", device="cpu")
     assert isinstance(be, TorchBackend) and be.device.type == "cpu"
     p = tk.program_from_reference(pipeline_demo_program(np.arange(8)))

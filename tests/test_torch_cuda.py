@@ -3,13 +3,16 @@ same CUDA tensors, at the main path's shapes (and, for the compute
 kernels, at odd shapes and one card-scale shape each; for the KVI walk
 kernel, its edge programs, random programs and both arena layouts), and
 the backend on the card against the backend on the CPU (and, serving
-the CLI's default stream, against the oracle and the CPU server).
+the CLI's default stream, against the oracle and the CPU server, with
+telemetry on as well).
 Marked ``cuda``; they skip with a reason where no card (or no nvcc) is
 present — decided in a fixture, never at import, so every worker
 collects the same tests. Run them on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,8 @@ from repro_torch.kernels import kdotp as kd
 from repro_torch.kernels import kvi_walk as kw
 from repro_torch.kernels import micro
 from repro_torch.kernels.build import nvcc_path
+from repro_torch.kvi.obs import Obs, canonical_trace, validate_trace
+from repro_torch.kvi.obs.__main__ import flow_summary
 from repro_torch.kvi.programs import conv2d_program, fft_program
 from repro_torch.kvi.serving import (DEFAULT_MIX, ServeEngine,
                                      canonical_report, make_templates,
@@ -153,6 +158,63 @@ def test_server_on_the_card_equals_the_cpu_server(card, batching):
     assert (fv.launch_count, kd.launch_count) == (f0, r0)
     assert rep["compile_cache"]["steady_hit_rate"] == 1.0
     assert rep["compile_cache"]["loop_misses"] == 0
+
+
+def test_served_run_with_telemetry_on_the_card_equals_the_cpu_trace(card):
+    """The CLI's default stream with ``Obs.on()`` on the backend and the
+    engine: a valid trace, 256 request flows, ``torch.walk_launches`` the
+    walk kernel's 59 launches, and the canonical trace and cycle-domain
+    metrics byte-equal to the CPU backend's run."""
+    templates = make_templates(DEFAULT_MIX, smoke=False, seed=0)
+    specs = poisson_arrivals(templates, 256, 40.0, seed=0)
+    runs = []
+    for device in (None, "cpu"):
+        obs = Obs.on()
+        w0 = kw.launch_count
+        rep = ServeEngine(templates, backend=TorchBackend(
+            device=device, passes=(), obs=obs), obs=obs).run(specs)
+        runs.append((rep, obs, kw.launch_count - w0))
+    (rep, obs, walks), (cpu_rep, cpu_obs, cpu_walks) = runs
+    trace = obs.tracer.to_chrome()
+    assert validate_trace(trace) == []
+    assert flow_summary(trace["traceEvents"])["requests"] == 256
+    snap, cpu_snap = obs.metrics.snapshot(), cpu_obs.metrics.snapshot()
+    assert snap["counters"]["torch.walk_launches"] == walks == 59
+    assert cpu_snap["counters"]["torch.walk_launches"] == cpu_walks == 0
+    assert canonical_report(rep) == canonical_report(cpu_rep)
+    assert json.dumps(canonical_trace(trace), sort_keys=True) == json.dumps(
+        canonical_trace(cpu_obs.tracer.to_chrome()), sort_keys=True)
+    for k in ("counters", "gauges"):
+        assert {n: v for n, v in snap[k].items() if n != "torch.walk_launches"
+                } == {n: v for n, v in cpu_snap[k].items()
+                      if n != "torch.walk_launches"}
+
+
+def test_backend_span_on_the_card_equals_meta(card):
+    """One live ``Obs`` over three runs on the card: one ``("torch",
+    "run_workload")`` span a run, its args the run's ``meta`` and its walk
+    launches (one a structural group), counters summed over the runs."""
+    rng = np.random.default_rng(6)
+    proto = tk.optimize_program(conv2d_program(
+        rng.integers(-99, 99, (16, 16)), rng.integers(-5, 5, (3, 3)),
+        shift=4))
+    wl = tk.KviWorkload.homogeneous([proto.replace(mem_init={
+        k: rng.permutation(v) for k, v in proto.mem_init.items()})
+        for _ in range(8)])
+    obs = Obs.on()
+    be = TorchBackend(passes=(), obs=obs)
+    metas = [be.run_workload(wl).meta for _ in range(3)]
+    spans = [ev for ev in obs.tracer.events if ev["name"] == "run_workload"]
+    assert [ev["args"] for ev in spans] == [
+        {"entries": 8, "groups": 1, "kernel_launches": m["kernel_launches"],
+         "walk_launches": 1} for m in metas]
+    assert validate_trace(obs.tracer.to_chrome()) == []
+    c = obs.metrics.snapshot()["counters"]
+    assert (c["torch.runs"], c["torch.walk_launches"]) == (3, 3)
+    assert c["torch.kernel_launches"] == sum(m["kernel_launches"]
+                                             for m in metas)
+    assert c["torch.compile_cache.misses"] == sum(
+        m["compile_cache"]["misses"] for m in metas) > 0
 
 
 def _walk_cases():

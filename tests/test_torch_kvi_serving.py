@@ -3,7 +3,8 @@ against the reference's (``repro.kvi.serving``): the same templates,
 request instances, arrivals and buckets under the same seeds; schedule-
 only reports byte for byte; with ``TorchBackend(device="cpu")`` the
 reference Pallas run's canonical report, launch-record cache counts
-included; outputs equal to the MFU oracle; and the CLI.
+included; outputs equal to the MFU oracle; and the CLI, its telemetry
+files included.
 
 The reference's Pallas run (interpret mode on the CPU, about 16 s) is
 made once, through its CLI, by a module-scoped fixture."""
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from repro.kvi import get_backend as r_backend
+from repro.kvi.obs import canonical_trace as r_canonical_trace
 from repro.kvi.serving import DEFAULT_MIX as R_DEFAULT_MIX
 from repro.kvi.serving import SMOKE_MIX as R_SMOKE_MIX
 from repro.kvi.serving import ServeEngine as RServeEngine
@@ -32,6 +34,9 @@ from repro.kvi.serving import save_trace as r_save_trace
 from repro.kvi.serving.__main__ import main as r_main
 
 import repro_torch.kvi as tk
+from repro_torch.kvi.obs import (Obs, canonical_trace, validate_metrics,
+                                 validate_trace)
+from repro_torch.kvi.obs.__main__ import main as obs_main
 from repro_torch.kvi.scheduler import HartScheduler
 from repro_torch.kvi.serving import (DEFAULT_MIX, SMOKE_MIX, ServeEngine,
                                      bucket_sizes, canonical_report,
@@ -203,11 +208,39 @@ def test_schedule_only_cli_matches_the_reference_cli():
 
 
 @pytest.mark.parametrize("flag", ["--trace-out", "--metrics-out"])
-def test_telemetry_flags_exit_non_zero(flag, tmp_path, capsys):
-    rc = main(["--smoke", "--no-backend", flag, str(tmp_path / "t.json")])
-    assert rc != 0
-    assert "queue 1 item 4" in capsys.readouterr().err
-    assert not (tmp_path / "t.json").exists()
+def test_telemetry_flags_write_the_reference_files(flag, tmp_path):
+    """Each flag alone writes a file that ``python -m repro_torch.kvi.obs
+    validate`` accepts and that equals the reference CLI's canonically
+    (the trace through ``canonical_trace``, byte for byte; the metrics
+    snapshot whole: a schedule-only run holds no wall field)."""
+    argv = ["--smoke", "--no-backend", "--requests", "24", "--canonical"]
+    texts = {}
+    for tag, fn in (("ref", r_main), ("port", main)):
+        path = tmp_path / f"{tag}.json"
+        rc, report = _run_cli(fn, argv + [flag, str(path)])
+        assert rc == 0
+        texts[tag] = (report, json.loads(path.read_text()))
+    assert texts["port"][0] == texts["ref"][0]
+    got, want = texts["port"][1], texts["ref"][1]
+    if flag == "--trace-out":
+        assert validate_trace(got) == []
+        assert json.dumps(canonical_trace(got), sort_keys=True) == \
+            json.dumps(r_canonical_trace(want), sort_keys=True)
+        kind = "trace"
+    else:
+        assert validate_metrics(got) == []
+        assert got == want and got["counters"]["serving.requests"] == 24
+        kind = "metrics"
+    argv = ["validate", str(tmp_path / "port.json")]
+    if kind == "metrics":
+        # a metrics snapshot is validated beside a trace
+        trace = tmp_path / "t.json"
+        assert main(["--smoke", "--no-backend", "--requests", "24",
+                     "--trace-out", str(trace)]) == 0
+        argv = ["validate", str(trace), "--metrics", str(tmp_path /
+                                                         "port.json")]
+    rc, line = _run_cli(obs_main, argv)
+    assert rc == 0 and line.rstrip().endswith("OK")
 
 
 def test_cli_without_device_needs_the_card():
@@ -219,16 +252,25 @@ def test_cli_without_device_needs_the_card():
         main(["--smoke", "--requests", "4"])
 
 
-def test_obs_none_is_accepted_and_a_live_bundle_refused():
-    be = tk.get_backend("torch", passes=(), obs=None, device="cpu")
-    assert be.passes == () and be.device.type == "cpu"
-    live = object()
-    for make in (lambda: TorchBackend(device="cpu", obs=live),
-                 lambda: tk.get_backend("torch", device="cpu", obs=live),
-                 lambda: ServeEngine({}, obs=live),
-                 lambda: HartScheduler(obs=live)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            make()
+CONSTRUCTORS = {
+    "TorchBackend": lambda obs: TorchBackend(device="cpu", obs=obs),
+    "get_backend_torch": lambda obs: tk.get_backend(
+        "torch", passes=(), device="cpu", obs=obs),
+    "get_backend_cyclesim": lambda obs: tk.get_backend("cyclesim",
+                                                       obs=obs),
+    "ServeEngine": lambda obs: ServeEngine({}, obs=obs),
+    "HartScheduler": lambda obs: HartScheduler(obs=obs),
+}
+
+
+@pytest.mark.parametrize("make", sorted(CONSTRUCTORS))
+def test_every_constructor_takes_none_and_a_live_obs(make):
+    """``obs=None`` (the default) and a live bundle are both taken and
+    kept as given: no layer refuses telemetry or drops it to a disabled
+    bundle."""
+    assert CONSTRUCTORS[make](None).obs is None
+    live = Obs.on()
+    assert CONSTRUCTORS[make](live).obs is live
 
 
 def test_port_templates_on_the_cpu_equal_the_oracle_at_every_bucket():
@@ -327,11 +369,16 @@ def test_serving_modules_load_neither_jax_nor_repro():
             "import repro_torch.kvi.oracle, repro_torch.kvi.lowering\n"
             "import repro_torch.kvi.scheduler, repro_torch.kvi.obs\n"
             "import repro_torch.kvi.serving.checks\n"
+            "import repro_torch.kvi.cyclesim, repro_torch.kvi.dse\n"
+            "import repro_torch.kvi.obs.__main__\n"
+            "assert repro_torch.kvi.dse.calibration_fit()['ok']\n"
             "from repro_torch.kvi.serving.__main__ import main\n"
-            "with contextlib.redirect_stdout(io.StringIO()):\n"
-            "    assert main(['--no-backend', '--smoke']) == 0\n"
+            "with contextlib.redirect_stdout(io.StringIO()), \\\n"
+            "        contextlib.redirect_stderr(io.StringIO()):\n"
+            "    assert main(['--no-backend', '--smoke', '--trace-out', "
+            "'/dev/null']) == 0\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={"PYTHONPATH": str(ROOT / "src"),
