@@ -88,6 +88,21 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    (traced over untraced ``execute_s``, the least of 3 each). A
    ``[telemetry]`` line holds the counts of trace events and metrics,
    the ratios and the trace's bytes;
+3d. dse    — the design-space exploration's walltime stage
+   (``repro_torch.kvi.dse``): ``sweep`` over ``shared`` M1 F1 D4 at 8,
+   16 and 32 bits (three measurement classes) with the paper's kernels
+   at full width (conv 32x32 F 3, FFT-256, the SPM-resident matmul 64,
+   their 3-hart composite) and ``measure_device=True``, once on the card
+   and once with ``device="cpu"``: canonical JSONs byte-equal,
+   ``kernel_launches`` equal in every class; each class's workloads
+   again on the card against the oracle, bit for bit; then ``python -m
+   repro_torch.kvi.dse --smoke --measure-device``'s ``main`` twice on one
+   store: exit 0 and every check True both times, the second run every
+   point and class from the store with no ``kvi_walk`` launch, the two
+   canonical JSONs byte-equal; and one process-executor worker's spawn
+   against the same job run serially. One ``[dse]`` line per class and
+   kernel (``device_compile_s``, ``device_steady_s`` unrounded,
+   ``kernel_launches``), then the phase's summary;
 3v. verify — every phase-3 workload at phase 3's widths again, through
    ``TorchBackend(verify=True)`` (the static analyzer over every
    instance, then the walk) beside phase 3's ``verify=False`` backend:
@@ -131,8 +146,9 @@ are the card's name and power limit, a JSON object of kernel numbers
 path; the SSD scan as its three kernels, each with the whole call under
 ``scan``; ``kvi_walk`` with every main-path structure under
 ``workloads``, serving's launches and device ms by bucket size under
-``serving``, phase 3t's numbers under ``telemetry`` and phase 3v's
-launches and analyzer seconds under ``verified``) and ``{"ok": true,
+``serving``, phase 3t's numbers under ``telemetry``, phase 3d's under
+``dse`` and phase 3v's launches and analyzer seconds under
+``verified``) and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -1178,6 +1194,189 @@ def run_telemetry(device, seed, workloads, be, requests=None, rounds=3,
 
 
 # ---------------------------------------------------------------------------
+# 3d: the design-space exploration's walltime stage on the card
+# ---------------------------------------------------------------------------
+
+#: phase 3d (a)'s points: one measurement class each (8, 16, 32 bits)
+DSE_BITS = (8, 16, 32)
+
+
+def _class_workloads(kernels, harts=3):
+    """A measurement class's workloads as the walltime stage builds
+    them: each kernel on every hart, and the composite."""
+    from repro_torch.kvi import KviWorkload
+    wls = {name: KviWorkload.replicate(prog, harts)
+           for name, prog in kernels.items()}
+    wls["composite"] = KviWorkload.composite(
+        {h: [p] for h, p in enumerate(kernels.values())},
+        name="composite")
+    return wls
+
+
+def _canonical_file(path):
+    """A sweep JSON written by the CLI, volatile-scrubbed, as bytes."""
+    from repro_torch.kvi.obs.scrub import DSE_VOLATILE, scrub
+    return json.dumps(scrub(json.loads(Path(path).read_text()),
+                            DSE_VOLATILE), indent=2, sort_keys=True)
+
+
+def run_dse_phase(device, seed, log=print):
+    """Phase 3d: (a) ``sweep`` over ``shared`` M1 F1 D4 at 8, 16 and 32
+    bits with the full-width kernels (conv 32x32 F 3, FFT-256, resident
+    matmul 64, their composite) and ``measure_device=True``, once on the
+    card and once with ``device="cpu"`` (one temporary point cache, so
+    the CPU run re-measures only the device classes): canonical JSONs
+    byte-equal, launches equal per class; each class's workloads once
+    more through the card's backend against the oracle, bit for bit.
+    (b) ``python -m repro_torch.kvi.dse --smoke --measure-device`` twice
+    through its ``main``: cold, then every point and class from the
+    store with no ``kvi_walk`` launch, canonical JSON byte-equal, exit 0
+    both times. Also the spawn cost of one process-executor worker.
+    ``device`` may be the CPU (a rehearsal: both runs there)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import kvi_walk as kw
+    from repro_torch.kvi import get_backend
+    from repro_torch.kvi.dse import (DesignPoint, PointCache, PointJob,
+                                     ProcessExecutor, SerialExecutor,
+                                     paper_kernel_factory, sweep)
+    from repro_torch.kvi.dse.__main__ import main as dse_main
+    from repro_torch.kvi.dse.sweep import optimize_kernels
+
+    pts = [DesignPoint("shared", 1, 1, 4, precision_bits=b)
+           for b in DSE_BITS]
+    factory = paper_kernel_factory(smoke=False, seed=seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        emitted = []
+        kw.launch_count = 0
+        t = time.perf_counter()
+        card_res = sweep(pts, factory, executor="serial",
+                         measure_device=True, device=device,
+                         cache=PointCache(cache_dir=f"{tmp}/cache"),
+                         emit=emitted.append)
+        card_s = time.perf_counter() - t
+        sync()
+        walk_launches = kw.launch_count
+        t = time.perf_counter()
+        cpu_res = sweep(pts, factory, executor="serial",
+                        measure_device=True, device="cpu",
+                        cache=PointCache(cache_dir=f"{tmp}/cache"))
+        cpu_s = time.perf_counter() - t
+        card_meta, cpu_meta = card_res.meta["device"], cpu_res.meta["device"]
+        if card_res.canonical_json() != cpu_res.canonical_json():
+            raise AssertionError("phase 3d: the card's canonical sweep JSON "
+                                 "differs from the CPU's")
+        launches = [{k: m["kernel_launches"] for k, m in c["kernels"].items()}
+                    for c in card_meta["classes"]]
+        if launches != [{k: m["kernel_launches"]
+                         for k, m in c["kernels"].items()}
+                        for c in cpu_meta["classes"]]:
+            raise AssertionError(f"phase 3d: kernel_launches differ, card "
+                                 f"{card_meta['classes']} cpu "
+                                 f"{cpu_meta['classes']}")
+        if card_meta["n_measurement_classes"] != len(DSE_BITS) or \
+                (device.type == "cuda") != (walk_launches > 0):
+            raise AssertionError(f"phase 3d: {card_meta}, {walk_launches} "
+                                 f"kvi_walk launches")
+        build_line = [ln for ln in emitted if ln.startswith("device build")]
+        classes = []
+        for c in card_meta["classes"]:
+            for name, m in c["kernels"].items():
+                row = dict(bits=c["precision_bits"], kernel=name, **m)
+                classes.append(row)
+                log(f"[dse] b{c['precision_bits']} {name}: device_compile_s "
+                    f"{m['device_compile_s']!r} device_steady_s "
+                    f"{m['device_steady_s']!r} kernel_launches "
+                    f"{m['kernel_launches']}")
+        # each class's workloads again on the card, against the oracle
+        be = get_backend("torch", device=device, passes=())
+        oracle = get_backend("oracle", passes=())
+        kw.launch_count = 0
+        checked = 0
+        for b in DSE_BITS:
+            kernels = optimize_kernels(factory(b), None)
+            for name, wl in _class_workloads(kernels).items():
+                got, want = be.run_workload(wl), oracle.run_workload(wl)
+                for i, (g, w) in enumerate(zip(got.outputs, want.outputs)):
+                    for key, arr in w.items():
+                        if g[key].dtype != arr.dtype or \
+                                not np.array_equal(g[key], arr):
+                            raise AssertionError(
+                                f"phase 3d: b{b} {name} entry {i} output "
+                                f"{key} differs from the oracle")
+                    checked += 1
+        sync()
+        oracle_launches = kw.launch_count
+
+        # (b) the CLI, cold then warm
+        runs = []
+        for run in ("cold", "warm"):
+            kw.launch_count = 0
+            t = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = dse_main(["--smoke", "--measure-device", "--quiet",
+                               "--device", device.type,
+                               "--out-dir", f"{tmp}/{run}", "--cache-dir",
+                               f"{tmp}/cli-cache", "--cache-stats"])
+            sync()
+            bench = json.loads(
+                Path(f"{tmp}/{run}/BENCH_torch_kvi_dse.json").read_text())
+            stats = json.loads(
+                Path(f"{tmp}/{run}/dse_cache_stats.json").read_text())
+            runs.append(dict(
+                run=run, rc=rc, wall_s=time.perf_counter() - t,
+                walk_launches=kw.launch_count, checks=bench["checks"],
+                hits=stats["hits"], misses=stats["misses"],
+                device_hits=stats["device_hits"],
+                device_misses=stats["device_misses"]))
+            if rc != 0 or not all(v for v in bench["checks"].values()
+                                  if isinstance(v, bool)):
+                raise AssertionError(f"phase 3d: the DSE CLI ({run}) gave "
+                                     f"{rc}, checks {bench['checks']}:\n"
+                                     f"{buf.getvalue()}")
+        cold, warm = runs
+        if (device.type == "cuda") != (cold["walk_launches"] > 0) or \
+                cold["device_misses"] != 3:
+            raise AssertionError(f"phase 3d: the cold CLI run {cold}")
+        if warm["walk_launches"] or warm["misses"] or \
+                warm["device_misses"] or warm["device_hits"] != 3 or \
+                warm["hits"] != bench["meta"]["n_points"]:
+            raise AssertionError(f"phase 3d: the warm CLI run {warm}")
+        if _canonical_file(f"{tmp}/cold/dse_sweep.json") != \
+                _canonical_file(f"{tmp}/warm/dse_sweep.json"):
+            raise AssertionError("phase 3d: the CLI's cold and warm "
+                                 "canonical JSONs differ")
+
+        # what one spawned worker costs beside running its job here
+        job = PointJob(pts[0], optimize_kernels(factory(8), None), True)
+        t = time.perf_counter()
+        list(SerialExecutor().imap_jobs([job]))
+        serial_job_s = time.perf_counter() - t
+        t = time.perf_counter()
+        list(ProcessExecutor(max_workers=1).imap_jobs([job]))
+        spawned_job_s = time.perf_counter() - t
+    out = dict(
+        points=[p.name for p in pts], walk_launches=walk_launches,
+        card_sweep_s=card_s, cpu_sweep_s=cpu_s,
+        build_line=build_line[0] if build_line else None,
+        compile_cache=card_meta["compile_cache"], classes=classes,
+        oracle_checked_entries=checked,
+        oracle_check_walk_launches=oracle_launches, cli=runs,
+        serial_job_s=serial_job_s, spawned_job_s=spawned_job_s)
+    summary = {k: v for k, v in out.items() if k != "classes"}
+    log(f"[dse] {json.dumps(summary)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # slice 2: the paper's compute kernels, and their independent numpy formulas
 # ---------------------------------------------------------------------------
 
@@ -1816,6 +2015,16 @@ def main(argv=None) -> int:
 
     stamp("telemetry")
 
+    # 3d. the DSE's walltime stage on the card -----------------------------
+    fv.launch_count = kd.launch_count = kw.launch_count = 0
+    dse = run_dse_phase(device, args.seed,
+                        log=lambda m: print(f"{m}; card: {card}"))
+    if fv.launch_count or kd.launch_count:
+        raise AssertionError(f"phase 3d: fused_vops {fv.launch_count}, "
+                             f"kdotp {kd.launch_count} launches")
+
+    stamp("dse")
+
     # 3v. slice 1 under verify=True ---------------------------------------
     kw.launch_count = 0
     verified = run_verify(device, rng, be_off, {
@@ -1870,7 +2079,8 @@ def main(argv=None) -> int:
                                  launches=launches["kvi_walk_verified"],
                                  analyzer_host_s={
                                      r["phase"]: r["analyzer_host_s"]
-                                     for r in verified}))
+                                     for r in verified}),
+                             dse=dse)
     by_kernel = {k: {} for k in micro.MODULES}
     for w in micro.CARD:
         x = inputs.pop(w.name)
@@ -1915,7 +2125,7 @@ def main(argv=None) -> int:
                                         "plain_call_ms", "library_call_ms",
                                         "shape")})
         for extra in ("kvred", "workloads", "scan", "also_replaces",
-                      "serving", "telemetry", "verified"):
+                      "serving", "telemetry", "verified", "dse"):
             if extra in t:
                 entry[extra] = t[extra]
         if name in paths:

@@ -37,8 +37,8 @@ from repro_torch.kvi.workload import (KviWorkload, WorkloadResult,
 
 #: Version token of the cycle-accurate timing semantics (lowering cost
 #: annotations + :func:`repro_torch.core.simulator.simulate` event model),
-#: part of every persistent sweep cache key (the reference's
-#: ``repro.kvi.dse.pointcache``). Bump it whenever a change alters
+#: part of every persistent sweep cache key
+#: (:mod:`repro_torch.kvi.dse.pointcache`). Bump it whenever a change alters
 #: simulated cycles, utilization or busy/stall accounting for an
 #: unchanged program — cached sweep records keyed to the old token then
 #: miss instead of serving stale timings. Explicit by design (not a

@@ -33,7 +33,7 @@ import numpy as np
 from repro_torch.configs.base import MFU_UNITS, KlessydraConfig
 
 #: Version token of the cost model, part of every persistent sweep
-#: cache key (the reference's ``repro.kvi.dse.pointcache``). Bump it whenever a
+#: cache key (:mod:`repro_torch.kvi.dse.pointcache`). Bump it whenever a
 #: :data:`CALIBRATION` constant or the area/energy formulas change in a
 #: way that alters any number a :class:`PointRecord` carries — cached
 #: records keyed to the old token then miss instead of serving stale

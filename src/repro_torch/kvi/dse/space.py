@@ -7,8 +7,9 @@ sub-word precision across the shared / symmetric-MIMD / heterogeneous-
 MIMD interconnection schemes, each judged on cycles, hardware cost and
 energy. A :class:`DesignSpace` declares that grid once; its deterministic
 :meth:`~DesignSpace.points` enumeration feeds the sweep driver
-(the reference's ``repro.kvi.dse.sweep``), the cost model (:mod:`repro_torch.kvi.dse.cost`)
-and the Pareto analysis (the reference's ``repro.kvi.dse.pareto``).
+(:mod:`repro_torch.kvi.dse.sweep`), the cost model
+(:mod:`repro_torch.kvi.dse.cost`) and the Pareto analysis
+(:mod:`repro_torch.kvi.dse.pareto`).
 
 A :class:`DesignPoint` couples the *data* precision of the workload to
 the *hardware* sub-word capability: an 8-bit point runs 8-bit programs
@@ -74,11 +75,11 @@ class DesignPoint:
     # None -> the backend's default optimizing pipeline; () -> raw
     # programs; a tuple of registered pass names -> custom pipeline.
     passes: Optional[Tuple[str, ...]] = None
-    # Opt-in Pallas walltime measurement: the sweep additionally batches
-    # this point's programs through PallasBackend.run_workload and
-    # records real walltime + compiled pallas_call counts. A measurement
+    # Opt-in device walltime measurement: the sweep additionally batches
+    # this point's programs through TorchBackend.run_workload and
+    # records real walltime + kernel-launch counts. A measurement
     # mode, not a hardware axis — it does not enter the point's name.
-    measure_pallas: bool = False
+    measure_device: bool = False
 
     def __post_init__(self):
         if self.scheme not in SCHEMES:
@@ -121,9 +122,9 @@ class DesignPoint:
 
     def canonical_dict(self) -> dict:
         """JSON-native identity of the point for content-addressed
-        caching (the reference's ``repro.kvi.dse.pointcache``): every field that can
-        change a measurement. ``measure_pallas`` is deliberately
-        excluded — it is a measurement *mode* (Pallas results cache
+        caching (:mod:`repro_torch.kvi.dse.pointcache`): every field
+        that can change a measurement. ``measure_device`` is deliberately
+        excluded — it is a measurement *mode* (device results cache
         under their own class key), not a hardware axis — and ``name``
         is derived, so it is excluded too."""
         return {"scheme": self.scheme, "M": self.M, "F": self.F,
@@ -221,7 +222,7 @@ class DesignSpace:
         """Decode flat ``index`` (mixed-radix over the axes, in exactly
         the :meth:`points` nesting order) into a :class:`DesignPoint` —
         O(1) random access into the grid without materializing it. The
-        lazy primitive the reference's ``repro.kvi.dse.search.CandidateSampler``
+        lazy primitive :class:`~repro_torch.kvi.dse.search.CandidateSampler`
         draws from: ``space.point_at(rng.randrange(space.grid_size))``
         is a uniform sample of the grid."""
         if index < 0:
@@ -328,7 +329,7 @@ class SpaceConstraints:
         if self.max_area_luteq is not None \
                 or self.max_static_nj_per_cycle is not None:
             from repro_torch.kvi.dse.cost import (energy_per_cycle_static,
-                                            hardware_cost)
+                                                  hardware_cost)
             cfg = point.config()
             if self.max_area_luteq is not None:
                 area = hardware_cost(cfg).area_luteq

@@ -1,22 +1,25 @@
 """The one volatile-key scrubber every canonical-output producer shares
-(the port's copy of ``repro.kvi.obs.scrub``, key sets unchanged).
+(the port's copy of ``repro.kvi.obs.scrub``).
 
-Reports that must be *byte-deterministic* across runs — the serving
-engine's ``canonical_report`` here; the DSE sweep and the telemetry layer
-in the reference — also carry wall-clock quantities, nondeterministic by
-nature. :func:`scrub` gives "this object, with every wall-clock /
-run-shape field removed, recursively". The sets are the reference's, so
-a canonical report of the port and one of the reference drop the same
-keys and can be compared byte for byte.
+Reports that must be *byte-deterministic* across runs — the DSE sweep
+(``SweepResult.canonical_json``), the serving engine's
+``canonical_report`` and the telemetry layer — also carry wall-clock
+quantities, nondeterministic by nature. :func:`scrub` gives "this
+object, with every wall-clock / run-shape field removed, recursively".
+The sets are the reference's, with the DSE's device walltime fields
+(``device_*``) in place of its ``pallas_*`` ones and the device's name
+added, so a canonical report of the port and one of the reference drop
+the same keys and can be compared byte for byte after that renaming.
 """
 from __future__ import annotations
 
 #: wall-clock / run-shape fields of the DSE sweep: timing measurements,
-#: the executor label (names *how* the sweep ran, not what it measured)
-#: and point-cache metadata (differs cold vs. warm by definition).
-DSE_VOLATILE = frozenset({"wall_s", "walltime_s", "pallas_walltime_s",
-                          "pallas_compile_s", "pallas_steady_s",
-                          "total_wall_s", "executor",
+#: the executor label and the device's name (they name *how* and *where*
+#: the sweep ran, not what it measured) and point-cache metadata
+#: (differs cold vs. warm by definition).
+DSE_VOLATILE = frozenset({"wall_s", "walltime_s", "device_walltime_s",
+                          "device_compile_s", "device_steady_s",
+                          "device_name", "total_wall_s", "executor",
                           "cached", "point_cache", "fresh_evals"})
 
 #: the serving engine's wall-clock / rate fields, on top of the DSE set

@@ -560,3 +560,72 @@ def test_ssd_scan_of_a_wide_state(card):
                          256, card, dt)
     torch.cuda.synchronize()
     assert ss.launch_count == before + 2 * ss.LAUNCHES_PER_CALL
+
+
+# ---------------------------------------------------------------------------
+# The DSE's walltime stage on the card (chip_smoke.py phase 3d (a))
+# ---------------------------------------------------------------------------
+
+DSE_POINTS_BITS = (8, 16, 32)
+
+
+def _dse_class_workloads(bits):
+    from repro_torch.kvi.dse import paper_kernel_factory
+    from repro_torch.kvi.dse.sweep import optimize_kernels
+    kernels = optimize_kernels(
+        paper_kernel_factory(smoke=False, seed=0)(bits), None)
+    wls = {name: tk.KviWorkload.replicate(p, 3)
+           for name, p in kernels.items()}
+    wls["composite"] = tk.KviWorkload.composite(
+        {h: [p] for h, p in enumerate(kernels.values())}, name="composite")
+    return wls
+
+
+@pytest.mark.parametrize("bits", DSE_POINTS_BITS)
+def test_dse_class_on_the_card_equals_the_oracle(card, bits):
+    """A walltime class's workloads at the paper's sizes (conv 32x32 F 3,
+    FFT-256 with Q15 twiddles, the SPM-resident matmul 64, their 3-hart
+    composite) at 8, 16 and 32 bits: every output on the card equals the
+    oracle's, dtype and all, one walk launch a structural group."""
+    be = TorchBackend(device=card, passes=())
+    oracle = tk.get_backend("oracle", passes=())
+    for name, wl in _dse_class_workloads(bits).items():
+        before = kw.launch_count
+        got = be.run_workload(wl)
+        torch.cuda.synchronize(card)
+        assert kw.launch_count - before == got.meta["groups"], name
+        want = oracle.run_workload(wl)
+        for g, w in zip(got.outputs, want.outputs):
+            assert set(g) == set(w)
+            for key, arr in w.items():
+                assert g[key].dtype == arr.dtype, (name, key)
+                np.testing.assert_array_equal(g[key], arr,
+                                              err_msg=f"{name} {key}")
+
+
+def test_dse_walltime_stage_on_the_card_equals_the_cpu(card, tmp_path):
+    """``sweep(measure_device=True)`` over shared M1 F1 D4 at 8, 16 and
+    32 bits on the card and with ``device="cpu"``: canonical JSON byte
+    for byte, the same launches per class and kernel, and the class keys
+    apart (the CPU run re-measures every class)."""
+    from repro_torch.kvi.dse import (DesignPoint, PointCache,
+                                     paper_kernel_factory, sweep)
+    pts = [DesignPoint("shared", 1, 1, 4, precision_bits=b)
+           for b in DSE_POINTS_BITS]
+    factory = paper_kernel_factory(smoke=False, seed=0)
+    kw.launch_count = 0
+    on_card = sweep(pts, factory, executor="serial", measure_device=True,
+                    cache=PointCache(cache_dir=str(tmp_path)))
+    assert kw.launch_count > 0
+    cache = PointCache(cache_dir=str(tmp_path))
+    on_cpu = sweep(pts, factory, executor="serial", measure_device=True,
+                   device="cpu", cache=cache)
+    assert (cache.hits, cache.device_hits, cache.device_misses) == (3, 0, 3)
+    assert on_card.canonical_json() == on_cpu.canonical_json()
+    card_meta, cpu_meta = on_card.meta["device"], on_cpu.meta["device"]
+    assert card_meta["device_name"] == torch.cuda.get_device_name(card)
+    assert cpu_meta["device_name"] == "cpu"
+    assert [{k: m["kernel_launches"] for k, m in c["kernels"].items()}
+            for c in card_meta["classes"]] == \
+        [{k: m["kernel_launches"] for k, m in c["kernels"].items()}
+         for c in cpu_meta["classes"]]

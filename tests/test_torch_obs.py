@@ -2,8 +2,9 @@
 reference's ``tests/kvi/test_obs.py`` run on the port (tracer and Chrome
 export, metrics registry, trace schema, the shared scrubber, cycle-sim
 trace integrity, determinism, the disabled path's 2 % bound, serving's
-view-vs-report cross-checks, the SVG charts), except the DSE sweep's
-telemetry and plots, which wait for the port's sweep; then the port
+view-vs-report cross-checks, the SVG charts, the DSE sweep's telemetry
+and plots); the scrubber's DSE set held to the reference's under the
+walltime stage's renaming; then the port
 against the reference (``repro.kvi.obs``) on the same numpy-seeded
 inputs:
 
@@ -23,6 +24,7 @@ import contextlib
 import copy
 import io
 import json
+import sys
 import time
 
 import numpy as np
@@ -40,6 +42,8 @@ from repro.kvi.serving.__main__ import main as r_serve_main
 
 import repro_torch.kvi as tk
 from repro_torch.kvi.cyclesim import CycleSimBackend
+from repro_torch.kvi.dse import (DesignSpace, build_report,
+                                 render_markdown, sweep)
 from repro_torch.kvi.obs import (DSE_VOLATILE, NULL_METRICS, NULL_OBS,
                                  NULL_TRACER, SERVE_VOLATILE,
                                  MetricsRegistry, Obs, Tracer,
@@ -47,7 +51,7 @@ from repro_torch.kvi.obs import (DSE_VOLATILE, NULL_METRICS, NULL_OBS,
                                  validate_trace)
 from repro_torch.kvi.obs.__main__ import flow_summary, stall_attribution, view
 from repro_torch.kvi.obs.svg import line_chart, scatter_chart
-from repro_torch.kvi.programs import conv2d_program
+from repro_torch.kvi.programs import conv2d_program, fft_program
 from repro_torch.kvi.serving import (SMOKE_MIX, ServeEngine,
                                      canonical_report, make_templates,
                                      poisson_arrivals)
@@ -279,6 +283,27 @@ class TestSchemaNegatives:
 
 
 class TestScrub:
+    def test_sweep_aliases_point_at_shared_sets(self):
+        from repro_torch.kvi.dse.sweep import VOLATILE_KEYS, scrub_volatile
+        assert VOLATILE_KEYS is DSE_VOLATILE
+        obj = {"wall_s": 1.0, "cycles": 5,
+               "meta": {"executor": "thread", "n": 2}}
+        assert scrub_volatile(obj) == scrub(obj, DSE_VOLATILE) == \
+            {"cycles": 5, "meta": {"n": 2}}
+
+    def test_dse_sets_are_the_references_renamed(self):
+        """The reference's DSE set with the walltime stage's
+        ``pallas_*`` names as ``device_*`` and the device's name added;
+        the serving and trace sets unchanged."""
+        import repro.kvi.obs.scrub
+        rscrub = sys.modules["repro.kvi.obs.scrub"]
+        renamed = {k.replace("pallas_", "device_")
+                   for k in rscrub.DSE_VOLATILE}
+        assert DSE_VOLATILE == renamed | {"device_name"}
+        assert SERVE_VOLATILE - DSE_VOLATILE == \
+            rscrub.SERVE_VOLATILE - rscrub.DSE_VOLATILE
+        assert not any("pallas" in k for k in DSE_VOLATILE)
+
     def test_serve_volatile_extends_dse(self):
         assert DSE_VOLATILE < SERVE_VOLATILE
         assert "req_per_s" in SERVE_VOLATILE
@@ -485,7 +510,80 @@ SERIES = {"shared/8b": [(2, 1.0), (8, 3.1)],
           "sym_mimd/8b": [(2, 1.0), (8, 3.9)]}
 
 
+def _tiny_kernels(precision_bits):
+    eb = precision_bits // 8
+    rng = np.random.default_rng(11)
+    img = rng.integers(-8, 8, (8, 8)).astype(np.int32)
+    filt = rng.integers(-4, 4, (3, 3)).astype(np.int32)
+    return {
+        "conv": conv2d_program(img, filt, shift=2, elem_bytes=eb),
+        "fft": fft_program(rng.integers(-64, 64, 32).astype(np.int32),
+                           rng.integers(-64, 64, 32).astype(np.int32),
+                           elem_bytes=eb),
+    }
+
+
+TINY_SPACE = DesignSpace(lanes=(2, 8), precisions=(8,))
+
+
+@pytest.fixture(scope="module")
+def tiny_obs_sweep():
+    obs = Obs.on()
+    lines = []
+    result = sweep(TINY_SPACE, _tiny_kernels, max_workers=1,
+                   executor="serial", emit=lines.append, obs=obs,
+                   progress_every=1)
+    return obs, lines, result
+
+
+class TestSweepTelemetry:
+    def test_progress_lines_stream_per_point(self, tiny_obs_sweep):
+        _, lines, result = tiny_obs_sweep
+        prog = [ln for ln in lines if ln.startswith("progress ")]
+        n = len(result.records)
+        assert len(prog) == n
+        assert f"{n}/{n} fresh points" in prog[-1]
+        assert "pts/s" in prog[-1] and "eta" in prog[-1]
+
+    def test_quiet_suppresses_progress(self):
+        result = sweep(TINY_SPACE.points()[:1], _tiny_kernels,
+                       max_workers=1, executor="serial", emit=None,
+                       progress_every=1)
+        assert result.records[0].ok
+
+    def test_sweep_trace_and_metrics(self, tiny_obs_sweep):
+        obs, _, result = tiny_obs_sweep
+        trace = obs.tracer.to_chrome()
+        assert validate_trace(trace) == []
+        snap = obs.metrics.snapshot()
+        assert validate_metrics(snap) == []
+        assert snap["counters"]["dse.points"] == len(result.records)
+        names = _track_names(trace)
+        assert ("dse", "points") in names.values()
+
+    def test_canonical_json_byte_identical_with_obs(self, tiny_obs_sweep):
+        _, _, traced = tiny_obs_sweep
+        plain = sweep(TINY_SPACE, _tiny_kernels, max_workers=1,
+                      executor="serial")
+        assert plain.canonical_json() == traced.canonical_json()
+
+
 class TestSvgPlots:
+    def test_write_plots_and_markdown_links(self, tiny_obs_sweep,
+                                            tmp_path):
+        from repro_torch.kvi.dse.plots import write_plots
+        _, _, result = tiny_obs_sweep
+        report = build_report(result)
+        plots = write_plots(result, report, str(tmp_path))
+        assert plots, "no figures written"
+        for kern, files in plots.items():
+            for fname in files:
+                body = (tmp_path / fname).read_text()
+                assert body.startswith("<svg"), fname
+        md = render_markdown(report, plots=plots)
+        fname = next(iter(plots.values()))[0]
+        assert f"]({fname})" in md
+
     def test_line_chart_deterministic_svg(self):
         svg = line_chart("t", "D", "speedup", SERIES, log_x=True)
         assert svg.startswith("<svg")
