@@ -103,7 +103,9 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    against the same job run serially. One ``[dse]`` line per class and
    kernel (``device_compile_s``, ``device_steady_s`` unrounded,
    ``kernel_launches``), then the phase's summary;
-3v. verify — every phase-3 workload at phase 3's widths again, through
+3v. verify — every phase-3 workload at phase 3's widths again, a quarter
+   of its instances (``VERIFY_SCALE``: the analyzer's host cost is
+   linear in them), through
    ``TorchBackend(verify=True)`` (the static analyzer over every
    instance, then the walk) beside phase 3's ``verify=False`` backend:
    outputs equal entry by entry and to the numpy formulas, the same walk
@@ -138,7 +140,34 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    for the compute and LM kernels every workload of phase 4, with the
    path that ran and, for a tensor-core product, the time of its operand
    glue; composite_1024 with its conv hart staging the whole window and
-   streaming rows, in turns.
+   streaming rows, in turns;
+6. lm      — the LM model zoo and LM serving (``repro_torch.models``,
+   ``repro_torch.serving``; plain PyTorch, as the reference's zoo calls
+   no kernel, so no kernel launches here): (a) every arch at
+   ``reduced_model`` size in float32 and in its config's bfloat16, one
+   set of seed-made weights on the CPU and the card, a prefill of 64
+   tokens of a batch of 2 and 4 decode steps, logits and caches equal
+   (1e-4 at float32 with TF32 off; 5e-2 at bfloat16, 1 % of the
+   elements allowed up to twice it; the MoE archs take the CPU's routes,
+   every token routed apart a near-tie; mixtral's and hymba's window of
+   32 wraps); (b) at full width, llama3.2-1b, mamba2-1.3b and
+   seamless-m4t-medium at full depth, hymba-1.5b at full depth with a
+   prompt of 2560 (its ring of 2048 wraps), mixtral-8x7b and
+   pixtral-12b cut to 2 layers (mixtral's prompt one window, 4096, so
+   its ring wraps at the decode step; the MoE dropless, as
+   ``reduced_model``; pixtral's prompt 1024 patches + 512 tokens; the
+   others 512 tokens): prefill a batch of 2, one decode step, its logits
+   against the forward over the extended stream, within 5e-2 with
+   float32 activations and recorded with the config's bfloat16 (audio:
+   shaped and finite); (c) ``python -m
+   repro_torch.launch.serve``'s ``main`` at full width and depth
+   (llama3.2-1b, 16 requests, 4 slots, max-seq 128, 24 new tokens):
+   every request 24 tokens, request 0's equal to a teacher-forced
+   decode loop through the same step, one prompt in two slots one
+   output. The ``[lm]`` line holds the server's tokens, seconds, tok/s
+   and TTFT p50 / p99, the median decode step ms, the peak device
+   memory, (b)'s seconds and the card. ``--only-lm`` runs this phase
+   alone (no build, no kernel or ok line).
 
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers
@@ -1831,9 +1860,422 @@ def _bound(t):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 6: the LM model zoo and LM serving
+# ---------------------------------------------------------------------------
+
+#: phase 6 (a): every arch at reduced size — a prefill of S tokens of a
+#: batch of B, then decode steps
+LM_S, LM_B, LM_DECODES = 64, 2, 4
+LM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+#: bfloat16 on two devices rounds apart: the share of elements allowed
+#: past the tolerance (none past twice it), as the CPU tests hold the
+#: port against the reference
+LM_BF16_OUTLIERS = 1e-2
+#: a router probability gap below which rounding may reorder two experts
+LM_NEAR_TIE = 2e-2
+#: phase 6 (b): one arch of each family at full width — (arch, layers
+#: kept or None for full depth, prompt tokens)
+LM_FULL = (("llama3.2-1b", None, 512), ("mamba2-1.3b", None, 512),
+           ("seamless-m4t-medium", None, 512),
+           ("hymba-1.5b", None, 2048 + 512),     # window + 512: the ring wraps
+           # 2 of 32 layers; a prompt of one window: a sliding-window cache
+           # holds min(prompt, window) slots and no headroom (the
+           # reference's cache_slots), so after a shorter prompt the first
+           # decode step overwrites the prompt's last token
+           ("mixtral-8x7b", 2, 4096),
+           ("pixtral-12b", 2, 1024 + 512))       # 2 of 40; 1024 patches
+#: one attention block over the whole prompt (the configs' 2048 divides
+#: none of 2560, 4096 + 1 and 2561)
+LM_BLOCK = 8192
+#: phase 6 (c): python -m repro_torch.launch.serve at full width
+LM_SERVE = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
+            "--max-seq", "128", "--max-new", "24"]
+
+
+def _lm_np(tree):
+    """A tree of tensors as numpy on the host (bfloat16 as float32)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _lm_np(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _lm_close(path, got, want, dtype) -> float:
+    """Trees equal: integers exactly, floats within ``LM_TOL[dtype]``
+    (rtol and atol; bfloat16 as ``LM_BF16_OUTLIERS`` says). Returns the
+    largest error in units of the tolerance."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        return max([_lm_close(f"{path}/{k}", got[k], want[k], dtype)
+                    for k in want] or [0.0])
+    if got.shape != want.shape:
+        raise AssertionError(f"{path}: shape {got.shape} != {want.shape}")
+    if np.issubdtype(want.dtype, np.integer):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{path}: integers differ")
+        return 0.0
+    tol = LM_TOL[dtype]
+    err = np.abs(got.astype(np.float64) - want) / (tol * (1 + np.abs(want)))
+    worst = float(err.max()) if err.size else 0.0
+    outliers = float(np.mean(err > 1)) if err.size else 0.0
+    if not np.isfinite(got).all() or (
+            worst > 1 if dtype == "float32" else
+            worst > 2 or outliers > LM_BF16_OUTLIERS):
+        raise AssertionError(f"{path}: {worst} x the tolerance {tol} "
+                             f"({outliers} of the elements past it)")
+    return worst
+
+
+@contextlib.contextmanager
+def lm_routes(record=None, force=None, flips=None):
+    """The port's MoE routes, per call in order: recorded (``record``)
+    on one device, or forced (``force``, the recorded ones) on another,
+    where every token routed apart must be a near-tie of its own
+    probabilities (counted in ``flips``)."""
+    import torch
+    from repro_torch.models import moe
+    orig = moe.route
+
+    def route(x, w, num_experts, top_k):
+        weights, idx, aux = orig(x, w, num_experts, top_k)
+        if force is None:
+            record.append(idx.cpu())
+            return weights, idx, aux
+        want = force.pop(0).to(idx.device)
+        probs = torch.softmax(torch.einsum("bsd,de->bse", x.float(),
+                                           w.float()), dim=-1)
+        apart = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+        for b, s in apart.nonzero().tolist():
+            p = probs[b, s]
+            kth = p[idx[b, s]].min()
+            other = [e for e in want[b, s].tolist()
+                     if e not in idx[b, s].tolist()]
+            gap = float((p[other] - kth).abs().max())
+            if gap >= LM_NEAR_TIE:
+                raise AssertionError(f"MoE route apart at ({b}, {s}) with "
+                                     f"a gap of {gap}")
+            flips.append(gap)
+        forced = torch.gather(probs, -1, want)
+        forced = forced / torch.clamp(forced.sum(-1, keepdim=True), min=1e-9)
+        return forced, want, aux
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def _lm_batch(cfg, kind, seq, batch, rng, device):
+    """A batch of ``batch_template``'s shapes from ``rng`` (tokens below
+    min(vocab, 100), float inputs standard normal) on ``device``."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import steps
+    out = {}
+    for k, p in steps.batch_template(
+            cfg, ShapeConfig(kind, kind, seq, batch)).items():
+        if p.dtype == "int32":
+            x = torch.from_numpy(rng.integers(0, min(cfg.vocab_size, 100),
+                                              p.shape).astype(np.int32))
+        else:
+            x = torch.from_numpy(rng.normal(size=p.shape).astype(
+                np.float32)).to(params_lib.torch_dtype(p.dtype))
+        out[k] = x.to(device)
+    return out
+
+
+def _lm_steps(cfg, par, params, prefill_batch, next_tokens, device):
+    """Prefill, then one decode step per token of ``next_tokens``, on
+    ``device``: every step's logits and the caches, as numpy."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import steps
+    from repro_torch.models.sharding import make_rules
+    rules = make_rules(None, cfg, par)
+    prefill = steps.make_prefill_step(
+        cfg, rules, par, ShapeConfig("p", "prefill", LM_S, LM_B))
+    decode = steps.make_decode_step(
+        cfg, rules, par, ShapeConfig("d", "decode", LM_S, LM_B))
+    batch = {k: v.to(device) for k, v in prefill_batch.items()}
+    logits, cache = prefill(params, batch)
+    out = {"prefill": _lm_np(logits), "prefill_cache": _lm_np(cache)}
+    for i, tok in enumerate(next_tokens):
+        logits, cache = decode(params, cache, {"tokens": tok.to(device)})
+        out[f"decode{i}"] = _lm_np(logits)
+    out["decode_cache"] = _lm_np(cache)
+    return out
+
+
+def run_lm_reduced(device, seed, log=print) -> dict:
+    """Phase 6 (a): every arch at ``reduced_model`` size in float32 and
+    its config's bfloat16, one set of seed-made weights on the CPU and
+    the card: prefill, ``LM_DECODES`` decode steps, logits and caches
+    equal. The MoE archs take the CPU's routes on the card, every token
+    routed apart a near-tie. Returns the worst error a dtype (in units of
+    its tolerance) and the flips."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import params as params_lib
+    worst = {d: 0.0 for d in LM_TOL}
+    flips = {d: [] for d in LM_TOL}
+    for arch in configs.list_archs() + ["llama100m"]:
+        spec = configs.get_spec(arch)
+        par = spec.parallelism.replace(remat="none", fsdp=False,
+                                       sequence_parallel=False)
+        for dtype in LM_TOL:
+            cfg = configs.reduced_model(spec.model).replace(dtype=dtype)
+            rng = np.random.default_rng(seed)
+            cpu_params = params_lib.initialize(zoo.param_template(cfg), seed,
+                                               device="cpu")
+            batch = _lm_batch(cfg, "prefill", LM_S, LM_B, rng, "cpu")
+            nxt = [torch.from_numpy(rng.integers(1, 90, (LM_B, 1)).astype(
+                np.int32)) for _ in range(LM_DECODES)]
+            routes = []
+            with lm_routes(record=routes):
+                want = _lm_steps(cfg, par, cpu_params, batch, nxt, "cpu")
+            card_params = params_lib.tree_map(
+                lambda x: x.to(device), cpu_params,
+                is_leaf=lambda x: not isinstance(x, dict))
+            apart = []
+            with lm_routes(force=routes, flips=apart):
+                got = _lm_steps(cfg, par, card_params, batch, nxt, device)
+            if routes or (dtype == "float32" and apart):
+                raise AssertionError(f"{arch} {dtype}: {len(routes)} routes "
+                                     f"left, {len(apart)} apart")
+            err = _lm_close(f"{arch} {dtype}", got, want, dtype)
+            worst[dtype] = max(worst[dtype], err)
+            flips[dtype] += apart
+            log(f"[lm] (a) {arch} {dtype}: the card equals the CPU (prefill "
+                f"{LM_S} x {LM_B}, {LM_DECODES} decode steps, logits and "
+                f"caches) within {err:.4f} x {LM_TOL[dtype]}; MoE tokens "
+                f"routed apart {len(apart)}")
+    return {"worst": worst, "routed_apart": {d: len(f) for d, f in
+                                             flips.items()}}
+
+
+def _lm_decode_vs_forward(cfg, par, params, seq, batch, nxt) -> dict:
+    """Prefill ``batch`` (the prefill shape of ``seq`` tokens), decode
+    ``nxt``; the decode logits against the
+    forward's last over the extended stream (audio: shaped and finite).
+    Returns the seconds of each and the error, max |d - f| / (1 + |f|)
+    (None for audio)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import steps
+    from repro_torch.models.sharding import make_rules
+    rules = make_rules(None, cfg, par)
+    t0 = time.perf_counter()
+    _, cache = steps.make_prefill_step(
+        cfg, rules, par, configs.ShapeConfig("p", "prefill", seq, 2))(
+        params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dlogits, _ = steps.make_decode_step(
+        cfg, rules, par, configs.ShapeConfig("d", "decode", seq, 2))(
+        params, cache, {"tokens": nxt})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    got = _lm_np(dlogits)
+    if got.shape != (2, 1, zoo.padded_vocab(cfg.vocab_size)) or \
+            not np.isfinite(got).all():
+        raise AssertionError(f"{cfg.name}: decode logits {got.shape}, "
+                             f"finite {np.isfinite(got).all()}")
+    err = None
+    if cfg.family != "audio":
+        ext = {"tokens": torch.cat([batch["tokens"], nxt], dim=1)}
+        if cfg.family == "vlm":
+            ext["patch_embeds"] = batch["patch_embeds"]
+        with torch.inference_mode():
+            x, pos = steps._embed_inputs(params, cfg, rules, ext, "prefill")
+            hid, _, _ = zoo.decoder_forward(params, cfg, rules, par, x, pos)
+            want = _lm_np(zoo.logits_fn(params, cfg, hid[:, -1:]))
+        err = float(np.max(np.abs(got - want) / (1 + np.abs(want))))
+    torch.cuda.synchronize()
+    slots = cache["layers"]["k"].shape[2] if "k" in cache["layers"] else None
+    return {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "forward_s": time.perf_counter() - t2, "err_vs_forward": err,
+            "cache_slots": slots}
+
+
+def run_lm_full(device, seed, log=print) -> dict:
+    """Phase 6 (b): one arch of each family at full width (``LM_FULL``),
+    one set of seed-made weights (float32) each: prefill a batch of 2,
+    one decode step, against the forward over the extended stream, with
+    float32 activations (held to 5e-2) and with the config's bfloat16
+    (recorded: over 16–48 layers the two paths' bfloat16 rounding alone
+    reaches 5e-2). Returns each arch's seconds, cuts and errors."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import params as params_lib
+    out = {}
+    for arch, layers, seq in LM_FULL:
+        t0 = time.perf_counter()
+        spec = configs.get_spec(arch)
+        cfg, cuts = spec.model, []
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+            cuts.append(f"{layers} of {spec.model.num_layers} layers")
+        if cfg.num_experts:
+            # dropless, as reduced_model's ample capacity: the check
+            # holds decode (no drop) against the forward (drops)
+            cfg = cfg.replace(capacity_factor=cfg.num_experts /
+                              cfg.num_experts_per_tok)
+            cuts.append(f"capacity_factor {cfg.capacity_factor} (dropless)")
+        par = spec.parallelism.replace(
+            remat="none", fsdp=False, sequence_parallel=False,
+            attn_q_block=LM_BLOCK, attn_kv_block=LM_BLOCK)
+        rng = np.random.default_rng(seed)
+        params = params_lib.initialize(zoo.param_template(cfg), seed,
+                                       device=device)
+        batch = _lm_batch(cfg, "prefill", seq, 2, rng, device)
+        nxt = torch.from_numpy(rng.integers(1, 90, (2, 1)).astype(
+            np.int32)).to(device)
+        torch.cuda.synchronize()
+        rec = {"init_s": time.perf_counter() - t0, "prompt": seq,
+               "layers": cfg.num_layers, "cuts": cuts}
+        for dtype in ("float32", cfg.dtype):
+            rec[dtype] = _lm_decode_vs_forward(
+                cfg.replace(dtype=dtype), par, params, seq, batch, nxt)
+        err = rec["float32"]["err_vs_forward"]
+        if err is not None and err > 5e-2:
+            raise AssertionError(f"{arch}: decode after a prefill of {seq} "
+                                 f"against the forward (float32): {err} > "
+                                 f"5e-2")
+        rec["seconds"] = time.perf_counter() - t0
+        out[arch] = rec
+        log(f"[lm] (b) {arch} at full width: {json.dumps(rec)}")
+        del params, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_serve(device, seed, log=print) -> dict:
+    """Phase 6 (c): ``repro_torch.launch.serve.main`` at full width and
+    depth (``LM_SERVE``): 16 requests of 24 tokens; the first request's
+    tokens equal a manual teacher-forced decode loop through the same
+    step on a fresh cache (the reference's greedy check); two requests
+    of one prompt give one output (slot reuse); then the median of 20
+    timed decode steps of the engine."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import Request, ServingEngine
+    report = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(LM_SERVE + ["--seed", str(seed)], report=report)
+    line = buf.getvalue().strip()
+    log(f"[lm] (c) {line}")
+    eng, done = report["engine"], report["done"]
+    if rc != 0 or len(done) != 16 or \
+            any(len(r.out_tokens) != 24 for r in done):
+        raise AssertionError(f"launch.serve: rc {rc}, {len(done)} served, "
+                             f"{[len(r.out_tokens) for r in done]}")
+    served = {"requests": len(done), "tokens": report["tokens"],
+              "seconds": report["seconds"],
+              "tok_per_s": report["tokens"] / report["seconds"],
+              "ttft_p50_s": float(np.percentile(report["ttft_s"], 50)),
+              "ttft_p99_s": float(np.percentile(report["ttft_s"], 99))}
+    first = next(r for r in done if r.rid == 0)
+    # request 0 sat in slot 0 from the engine's first step; the other
+    # slots' rows do not reach row 0 of the step
+    cache = ServingEngine(eng.cfg, eng.params, slots=eng.slots,
+                          max_seq=eng.max_seq, device=device).cache
+    toks = np.zeros((eng.slots, 1), np.int32)
+
+    def step(tok):
+        nonlocal cache
+        toks[0, 0] = tok
+        logits, cache = eng._decode(eng.params, cache, {
+            "tokens": torch.from_numpy(toks).to(device)})
+        return int(logits[0, -1].argmax())
+
+    for tok in first.prompt:
+        nxt = step(tok)
+    manual = [nxt]
+    while len(manual) < first.max_new_tokens:
+        manual.append(step(manual[-1]))
+    if manual != first.out_tokens:
+        raise AssertionError(f"request 0 served {first.out_tokens}, the "
+                             f"decode loop gives {manual}")
+    for rid in (100, 101):
+        eng.submit(Request(rid=rid, prompt=first.prompt.copy(),
+                           max_new_tokens=first.max_new_tokens))
+    again = [r.out_tokens for r in eng.run_until_drained() if r.rid >= 100]
+    if len(again) != 2 or again[0] != again[1]:
+        raise AssertionError(f"one prompt in two slots served {again}")
+    # the engine's decode step, timed alone (its batch of 4 slots), then
+    # its device time in a profiler trace of 5 more
+    ms = []
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(manual[i % len(manual)])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.micro import device_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(5):
+            step(manual[i])
+        torch.cuda.synchronize()
+    device_ms = sum(device_us(ev) for ev in prof.key_averages()
+                    ) / 1e3 / 5 or None     # None: the trace saw no card
+    return dict(served, decode_step_ms_median=float(np.median(ms[3:])),
+                decode_step_device_ms=device_ms,
+                greedy_equals_decode_loop=True, slot_reuse_equal=True,
+                reuse_equals_request_0=again[0] == first.out_tokens,
+                line=line)
+
+
+def kernel_launches() -> int:
+    """Launches of every kernel of the port so far (their counters)."""
+    from repro_torch.kernels import fused_vops, kdotp, kvi_walk, micro
+    return (fused_vops.launch_count + kdotp.launch_count +
+            kvi_walk.launch_count +
+            sum(m.launch_count for m in micro.MODULES.values()))
+
+
+def run_lm(device, seed, card, log=print) -> dict:
+    """Phase 6: (a) every reduced arch, the card against the CPU; (b)
+    one arch of each family at full width, decode after prefill against
+    the forward; (c) LM serving at full width. No kernel of the port
+    runs here: the zoo calls the plain layers, as the reference's does.
+    Returns the ``[lm]`` line's numbers."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reduced = run_lm_reduced(device, seed, log)
+    t1 = time.perf_counter()
+    full = run_lm_full(device, seed, log)
+    t2 = time.perf_counter()
+    served = run_lm_serve(device, seed, log)
+    t3 = time.perf_counter()
+    return {"serve": {k: v for k, v in served.items() if k != "line"},
+            "decode_step_ms_median": served["decode_step_ms_median"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "full_width_s": {a: r["seconds"] for a, r in full.items()},
+            "full_width": full, "reduced": reduced,
+            "phase_s": {"reduced": t1 - t0, "full_width": t2 - t1,
+                        "serve": t3 - t2},
+            "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only-lm", action="store_true",
+                    help="run phase 6 alone (no build; no kernel or ok "
+                         "line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1861,6 +2303,18 @@ def main(argv=None) -> int:
         now = time.perf_counter()
         print(f"[phase] {phase}: {now - t_phase[0]:.1f} s")
         t_phase[0] = now
+
+    def lm_phase():
+        before = kernel_launches()
+        lm = run_lm(device, args.seed, card,
+                    log=lambda m: print(f"{m}; card: {card}"))
+        lm["kernel_launches"] = kernel_launches() - before
+        print(f"[lm] {json.dumps(lm)}")
+        stamp("lm")
+
+    if args.only_lm:
+        lm_phase()
+        return 0
 
     # 1. build -------------------------------------------------------------
     nvcc = build.nvcc_path()
@@ -2028,7 +2482,7 @@ def main(argv=None) -> int:
     # 3v. slice 1 under verify=True ---------------------------------------
     kw.launch_count = 0
     verified = run_verify(device, rng, be_off, {
-        r["phase"]: r["warm_wall_s"] for r in records},
+        r["phase"]: r["warm_wall_s"] for r in records}, scale=VERIFY_SCALE,
         log=lambda m: print(f"{m}; card: {card}"))
     launches["kvi_walk_verified"] = kw.launch_count
     if kw.launch_count != 2 * sum(r["walk_launches"] for r in verified):
@@ -2134,6 +2588,9 @@ def main(argv=None) -> int:
         print(f"[time] {name} {t['shape']}: {json.dumps(entry)}; "
               f"card: {card}")
     stamp("time")
+
+    # 6. the LM model zoo and LM serving ------------------------------------
+    lm_phase()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -2178,6 +2635,10 @@ def json_rows(ssd_parts):
             for part in (ssd_parts if name == "ssd_scan" else (name,))]
 
 
+#: phase 3v's batches are phase 3's over this: the analyzer takes about
+#: 0.1 s an instance on the card's host, and at full batches the phase
+#: took 262-267 s of a script held to 1200 s
+VERIFY_SCALE = 4
 #: the kernels of phase 4's two driven runs
 SLICE2 = ("spm_matmul", "spm_conv2d", "spm_fft", "het_mimd")
 SLICE3 = ("flash_attention", "ssd_scan")

@@ -1,15 +1,158 @@
-"""Configuration dataclasses (the port's copy of ``repro.configs.base``,
-as far as the port uses it): ``KlessydraConfig``, the paper's coprocessor
-taxonomy (M, F, D, N) used by the cycle model in ``repro_torch.core``, the
-KVI lowering and the serving engine. The reference's LM framework
-configs (``ModelConfig``, ``ShapeConfig``, ``Parallelism``, ``ArchSpec``,
-``SHAPES``) are not copied yet.
+"""Configuration dataclasses, the port's copy of ``repro.configs.base``.
+
+Two worlds share this module:
+  * ModelConfig / ShapeConfig / Parallelism / ArchSpec — the LM
+    framework (the 11 architectures of ``repro_torch.configs`` × input
+    shapes); ``Parallelism``'s mesh and XLA knobs are kept as data, and
+    on one device only ``remat`` and the attention block sizes are read.
+  * KlessydraConfig — the paper's coprocessor taxonomy (M, F, D, N) used
+    by the cycle model in ``repro_torch.core``, the KVI lowering and the
+    serving engine.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
+
+
+# ---------------------------------------------------------------------------
+# LM framework configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters (one instance per assigned arch)."""
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int = 0               # query heads (0 for attention-free)
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 32000
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+
+    # --- attention flavor ---
+    sliding_window: int = 0          # 0 => full causal attention
+    rope_theta: float = 10_000.0
+
+    # --- SSM (mamba2 / hybrid) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv: int = 4
+    ssm_groups: int = 1
+
+    # --- encoder-decoder (audio) ---
+    encoder_layers: int = 0          # >0 => enc-dec model
+
+    # --- modality frontend stub ---
+    frontend: str = "none"           # none | patch | frames
+    frontend_len: int = 0            # patches / frames prepended (vlm) or enc input (audio)
+
+    # --- numerics ---
+    dtype: str = "bfloat16"          # activation/compute dtype
+    param_dtype: str = "float32"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_state else 0
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: (name, kind, seq_len, global_batch)."""
+
+    name: str
+    kind: str                        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    def replace(self, **kw) -> "ShapeConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# The four assigned LM shapes (identical sets for all 10 archs).
+SHAPES: dict = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+@dataclass(frozen=True)
+class Parallelism:
+    """How an arch maps onto the mesh. Follows the paper's TLP/DLP lens:
+    ``data``(+``pod``) axes carry thread-level parallelism, ``model`` carries
+    data-level parallelism (tensor sharding + kernel lanes)."""
+
+    fsdp: bool = False               # shard param d_model dim over "data"
+    sequence_parallel: bool = False  # shard residual seq dim over "model"
+    expert_parallel: bool = False    # shard experts over "pod" when divisible
+    remat: str = "block"             # none | block | full
+    scan_layers: bool = True
+    moment_dtype: str = "float32"    # Adam moment storage (int8 => compressed)
+    grad_accum: int = 1
+    attn_q_block: int = 2048         # XLA flash attention block sizes
+    attn_kv_block: int = 2048
+    # --- beyond-paper perf knobs (§Perf hillclimbs; defaults = baseline) ---
+    swa_block_skip: bool = False     # sliding-window: only visit KV blocks
+    #                                  inside the window (true FLOP cut)
+    moe_decode_group: bool = False   # decode MoE: one routing group per
+    #                                  local batch (kills capacity padding)
+    pure_dp: bool = False            # small models: use the model axis as
+    #                                  extra data parallelism + ZeRO sharding
+    #                                  (the paper's TLP/DLP rebalance)
+    mixed_precision: bool = False    # bf16 compute params + f32 master:
+    #                                  backward collectives go bf16 (halved)
+    attn_repeat_kv: bool = False     # GQA: repeat K/V to H heads instead of
+    #                                  grouped-q reshape — keeps the score
+    #                                  einsum head-sharded (no per-block
+    #                                  all-to-all resharding)
+    moe_capacity_sharding: bool = False  # shard MoE dispatch slots (C) over
+    #                                  "model" instead of expert width (F):
+    #                                  w_down contraction becomes local (no
+    #                                  [B,E,C,D] all-reduce per layer)
+    # Which shape cells run for this arch ("long_500k" only for sub-quadratic).
+    shapes: Tuple[str, ...] = ("train_4k", "prefill_32k", "decode_32k")
+
+    def replace(self, **kw) -> "Parallelism":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    """Everything the launcher needs for one --arch id."""
+
+    model: ModelConfig
+    parallelism: Parallelism
+    source: str = ""                 # provenance note [paper/hf; tier]
 
 
 # ---------------------------------------------------------------------------

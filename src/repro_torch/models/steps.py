@@ -1,0 +1,263 @@
+"""Step functions (prefill / decode) + cache & input templates, the port
+of the reference's ``repro/models/steps.py``.
+
+Everything here is shape-polymorphic over (arch, shape) cells; shardings
+come from the logical-axis Rules, which on one device constrain nothing.
+The steps run eagerly under ``torch.inference_mode()`` on the device of
+the params they are given. The train step (``make_loss_fn``,
+``make_train_step``) waits for the optimizer (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, Parallelism, ShapeConfig
+from repro_torch.models import model_zoo as zoo
+from repro_torch.models.params import P, torch_dtype, tree_map
+from repro_torch.models.sharding import Rules
+
+LABEL_IGNORE = -100
+
+
+# ---------------------------------------------------------------------------
+# cache templates
+# ---------------------------------------------------------------------------
+
+DECODE_HEADROOM = 64    # extra slots a prefill leaves for generation
+
+
+def cache_slots(cfg: ModelConfig, shape: ShapeConfig,
+                extra_slots: int = 0) -> int:
+    """KV slots: full seq (+headroom) for dense attention, window for SWA
+    (ring buffers never overflow — eviction handles capacity)."""
+    if cfg.sliding_window:
+        return min(shape.seq_len, cfg.sliding_window)
+    return shape.seq_len + extra_slots
+
+
+def cache_template(cfg: ModelConfig, shape: ShapeConfig,
+                   extra_slots: int = 0) -> dict:
+    """P-spec tree for the decode cache of one (arch, shape)."""
+    L, B = cfg.num_layers, shape.global_batch
+    layers = {}
+    if cfg.family == "audio":
+        S_self = shape.seq_len // 2 + extra_slots
+        S_cross = shape.seq_len // 2
+        KV, hd = cfg.num_kv_heads, cfg.head_dim
+        layers = {
+            "k": P((L, B, S_self, KV, hd),
+                   ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+                   "zeros", cfg.dtype),
+            "v": P((L, B, S_self, KV, hd),
+                   ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+                   "zeros", cfg.dtype),
+            "cpos": P((L, B, S_self), ("layers", "batch", "cache_seq"),
+                      "neg1", "int32"),
+            "xk": P((L, B, S_cross, KV, hd),
+                    ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+                    "zeros", cfg.dtype),
+            "xv": P((L, B, S_cross, KV, hd),
+                    ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+                    "zeros", cfg.dtype),
+        }
+    else:
+        if cfg.num_heads:  # attention caches (dense/moe/vlm/hybrid)
+            S = cache_slots(cfg, shape, extra_slots)
+            KV, hd = cfg.num_kv_heads, cfg.head_dim
+            layers.update({
+                "k": P((L, B, S, KV, hd),
+                       ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+                       "zeros", cfg.dtype),
+                "v": P((L, B, S, KV, hd),
+                       ("layers", "batch", "cache_seq", "kv_heads", "head_dim"),
+                       "zeros", cfg.dtype),
+                "cpos": P((L, B, S), ("layers", "batch", "cache_seq"),
+                          "neg1", "int32"),
+            })
+        if cfg.ssm_state:  # ssm caches (ssm/hybrid)
+            C = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+            layers.update({
+                "conv": P((L, B, cfg.ssm_conv - 1, C),
+                          ("layers", "batch", None, None), "zeros", cfg.dtype),
+                "state": P((L, B, cfg.ssm_heads, cfg.ssm_headdim,
+                            cfg.ssm_state),
+                           ("layers", "batch", "ssm_heads", None, None),
+                           "zeros", "float32"),
+            })
+    return {"layers": layers,
+            "pos": P((B,), ("batch",), "zeros", "int32")}
+
+
+# ---------------------------------------------------------------------------
+# input specs (the data templates)
+# ---------------------------------------------------------------------------
+
+def batch_template(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """P-spec tree for one step's data batch."""
+    B, S = shape.global_batch, shape.seq_len
+    kind = shape.kind
+    if cfg.family == "audio":
+        Se = Sd = S // 2
+        if kind == "train":
+            return {"frames": P((B, Se, cfg.d_model), ("batch", "seq", None),
+                                "normal", cfg.dtype),
+                    "tokens": P((B, Sd), ("batch", "seq"), "zeros", "int32"),
+                    "labels": P((B, Sd), ("batch", "seq"), "zeros", "int32")}
+        if kind == "prefill":
+            return {"frames": P((B, Se, cfg.d_model), ("batch", "seq", None),
+                                "normal", cfg.dtype),
+                    "tokens": P((B, Sd), ("batch", "seq"), "zeros", "int32")}
+        return {"tokens": P((B, 1), ("batch", None), "zeros", "int32")}
+    if cfg.family == "vlm":
+        Fl = cfg.frontend_len
+        if kind == "train":
+            return {"patch_embeds": P((B, Fl, cfg.d_model),
+                                      ("batch", "seq", None), "normal",
+                                      cfg.dtype),
+                    "tokens": P((B, S - Fl), ("batch", "seq"), "zeros",
+                                "int32"),
+                    "labels": P((B, S), ("batch", "seq"), "zeros", "int32")}
+        if kind == "prefill":
+            return {"patch_embeds": P((B, Fl, cfg.d_model),
+                                      ("batch", "seq", None), "normal",
+                                      cfg.dtype),
+                    "tokens": P((B, S - Fl), ("batch", "seq"), "zeros",
+                                "int32")}
+        return {"tokens": P((B, 1), ("batch", None), "zeros", "int32")}
+    # plain decoder families
+    if kind == "train":
+        return {"tokens": P((B, S), ("batch", "seq"), "zeros", "int32"),
+                "labels": P((B, S), ("batch", "seq"), "zeros", "int32")}
+    if kind == "prefill":
+        return {"tokens": P((B, S), ("batch", "seq"), "zeros", "int32")}
+    return {"tokens": P((B, 1), ("batch", None), "zeros", "int32")}
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, vocab_size: int):
+    """logits [B,S,Vp] (any float dtype), labels [B,S] int32 with
+    LABEL_IGNORE masked. Returns (mean_nll, z_loss_term)."""
+    logits = logits.float()
+    mask = (labels != LABEL_IGNORE) & (labels >= 0) & (labels < vocab_size)
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    denom = torch.clamp(mask.sum(), min=1)
+    z_loss = torch.sum(torch.square(lse) * mask) / denom
+    return nll.sum() / denom, z_loss
+
+
+# ---------------------------------------------------------------------------
+# forward dispatch
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, cfg: ModelConfig, rules: Rules, batch, kind: str):
+    """Returns (x [B,S,D], positions [B,S])."""
+    dtype = torch_dtype(cfg.dtype)
+    if cfg.family == "vlm" and kind in ("train", "prefill"):
+        patches = torch.einsum("bsd,de->bse",
+                               batch["patch_embeds"].to(dtype),
+                               params["patch_adapter"].to(dtype))
+        toks = zoo.embed_tokens(params, cfg, batch["tokens"])
+        x = torch.cat([patches, toks], dim=1)
+    else:
+        x = zoo.embed_tokens(params, cfg, batch["tokens"])
+    B, S = x.shape[:2]
+    positions = zoo._positions(B, S, x.device)
+    x = rules.constrain(x, "batch", "seq_sp", None)
+    return x, positions
+
+
+def forward_train(params, cfg, rules, par, batch):
+    """The training forward. Returns (logits, labels, aux)."""
+    if cfg.family == "audio":
+        enc = zoo.encoder_forward(params, cfg, rules, par, batch["frames"])
+        x = zoo.embed_tokens(params, cfg, batch["tokens"])
+        B, Sd = batch["tokens"].shape
+        pos = zoo._positions(B, Sd, x.device)
+        hid, _, aux = zoo.encdec_decoder_forward(params, cfg, rules, par, x,
+                                                 pos, enc)
+    else:
+        x, pos = _embed_inputs(params, cfg, rules, batch, "train")
+        hid, _, aux = zoo.decoder_forward(params, cfg, rules, par, x, pos)
+    logits = zoo.logits_fn(params, cfg, hid)
+    return logits, batch["labels"], aux
+
+
+# ---------------------------------------------------------------------------
+# step factories
+# ---------------------------------------------------------------------------
+
+def _zeros(template, device):
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch_dtype(p.dtype),
+                                          device=device), template)
+
+
+def make_prefill_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
+                      shape: ShapeConfig):
+    # leave generation headroom so decode never overwrites live slots
+    cache_t = cache_template(cfg, shape, extra_slots=DECODE_HEADROOM)
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        cache0 = _zeros(cache_t["layers"], params["embed"].device)
+        if cfg.family == "audio":
+            enc = zoo.encoder_forward(params, cfg, rules, par, batch["frames"])
+            x = zoo.embed_tokens(params, cfg, batch["tokens"])
+            B, Sd = batch["tokens"].shape
+            pos = zoo._positions(B, Sd, x.device)
+            hid, layer_cache, _ = zoo.encdec_decoder_forward(
+                params, cfg, rules, par, x, pos, enc,
+                cache={"layers": cache0}, decode=False)
+            S_total = Sd
+        else:
+            x, pos = _embed_inputs(params, cfg, rules, batch, "prefill")
+            hid, layer_cache, _ = zoo.decoder_forward(
+                params, cfg, rules, par, x, pos,
+                cache={"layers": cache0}, decode=False)
+            S_total = x.shape[1]
+        logits = zoo.logits_fn(params, cfg, hid[:, -1:])
+        B = hid.shape[0]
+        cache = {"layers": layer_cache,
+                 "pos": torch.full((B,), S_total, dtype=torch.int32,
+                                   device=hid.device)}
+        return logits, cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
+                     shape: ShapeConfig):
+    @torch.inference_mode()
+    def decode_step(params, cache, batch):
+        tokens = batch["tokens"]                       # [B, 1]
+        x = zoo.embed_tokens(params, cfg, tokens)
+        pos = cache["pos"][:, None]                    # [B, 1] per-slot
+        if cfg.family == "audio":
+            hid, layer_cache, _ = zoo.encdec_decoder_forward(
+                params, cfg, rules, par, x, pos, None, cache=cache,
+                decode=True)
+        else:
+            hid, layer_cache, _ = zoo.decoder_forward(
+                params, cfg, rules, par, x, pos, cache=cache, decode=True)
+        logits = zoo.logits_fn(params, cfg, hid)
+        new_cache = {"layers": layer_cache, "pos": cache["pos"] + 1}
+        return logits, new_cache
+
+    return decode_step
+
+
+def make_step(cfg, rules, par, shape, opt_cfg: Optional[object] = None):
+    if shape.kind == "train":
+        raise NotImplementedError(
+            "the train step waits for the optimizer's port (ROADMAP.md "
+            "queue 1, the training stack)")
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, rules, par, shape)
+    return make_decode_step(cfg, rules, par, shape)

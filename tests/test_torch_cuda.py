@@ -629,3 +629,118 @@ def test_dse_walltime_stage_on_the_card_equals_the_cpu(card, tmp_path):
             for c in card_meta["classes"]] == \
         [{k: m["kernel_launches"] for k, m in c["kernels"].items()}
          for c in cpu_meta["classes"]]
+
+
+# ---------------------------------------------------------------------------
+# the LM model zoo and LM serving on the card (plain PyTorch, no kernel)
+# ---------------------------------------------------------------------------
+
+def _lm_parts(arch, dtype="float32"):
+    from repro_torch import configs
+    from repro_torch.models import model_zoo, params
+    spec = configs.get_spec(arch)
+    cfg = configs.reduced_model(spec.model).replace(dtype=dtype)
+    par = spec.parallelism.replace(remat="none", fsdp=False,
+                                   sequence_parallel=False)
+    return cfg, par, params.initialize(model_zoo.param_template(cfg), 0,
+                                       device="cpu")
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x7b",
+                                  "mamba2-1.3b", "hymba-1.5b",
+                                  "seamless-m4t-medium", "pixtral-12b"])
+def test_lm_steps_on_the_card_equal_the_cpu(card, arch):
+    """Prefill (64 tokens, batch 2) and three decode steps of a reduced
+    arch in float32 on one set of weights: the card's logits and caches
+    within 1e-4 of the CPU's, integer cache fields equal."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import steps
+    from repro_torch.models.sharding import make_rules
+    cfg, par, params = _lm_parts(arch)
+    rules = make_rules(None, cfg, par)
+    rng = np.random.default_rng(0)
+    batch = {}
+    for k, p in steps.batch_template(
+            cfg, ShapeConfig("p", "prefill", 64, 2)).items():
+        batch[k] = (torch.from_numpy(rng.integers(0, 100, p.shape).astype(
+            np.int32)) if p.dtype == "int32" else torch.from_numpy(
+            rng.normal(size=p.shape).astype(np.float32)))
+    nxt = [torch.from_numpy(rng.integers(1, 90, (2, 1)).astype(np.int32))
+           for _ in range(3)]
+    outs = []
+    for device in ("cpu", card):
+        prefill = steps.make_prefill_step(cfg, rules, par,
+                                          ShapeConfig("p", "prefill", 64, 2))
+        decode = steps.make_decode_step(cfg, rules, par,
+                                        ShapeConfig("d", "decode", 64, 2))
+        p = _to(params, device)
+        logits, cache = prefill(p, _to(batch, device))
+        got = [logits.cpu()]
+        for tok in nxt:
+            logits, cache = decode(p, cache, {"tokens": tok.to(device)})
+            got.append(logits.cpu())
+        outs.append((got, _to(cache, "cpu")))
+    (want, want_cache), (got, got_cache) = outs
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    for k, w in want_cache["layers"].items():
+        g = got_cache["layers"][k]
+        if w.dtype in (torch.int32, torch.int64):
+            assert torch.equal(g, w), k
+        else:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+    assert torch.equal(got_cache["pos"], want_cache["pos"])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "hymba-1.5b"])
+def test_lm_engine_on_the_card_serves_the_cpus_tokens(card, arch):
+    """The reduced engine in float32 on the card gives the CPU engine's
+    tokens request by request (more requests than slots)."""
+    from repro_torch.serving import Request, ServingEngine
+    cfg, _, params = _lm_parts(arch)
+    rng = np.random.default_rng(1)
+    ps = [rng.integers(1, 90, int(rng.integers(3, 12))).astype(np.int32)
+          for _ in range(6)]
+    served = []
+    for device in ("cpu", card):
+        eng = ServingEngine(cfg, params, slots=3, max_seq=48, device=device)
+        assert eng.cache["pos"].device.type == torch.device(device).type
+        for i, p in enumerate(ps):
+            eng.submit(Request(rid=i, prompt=p.copy(), max_new_tokens=6))
+        served.append({r.rid: r.out_tokens
+                       for r in eng.run_until_drained(500)})
+    assert len(served[1]) == 6 and served[1] == served[0]
+
+
+def test_lm_initialize_on_the_card_is_the_same_in_two_processes(card):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    code = ("import hashlib\n"
+            "from repro_torch.configs import get_spec, reduced_model\n"
+            "from repro_torch.models import model_zoo, params\n"
+            "cfg = reduced_model(get_spec('hymba-1.5b').model)\n"
+            "p = params.initialize(model_zoo.param_template(cfg), 0)\n"
+            "h = hashlib.sha256()\n"
+            "for _, x in params.tree_leaves(p):\n"
+            "    assert x.is_cuda\n"
+            "    h.update(x.cpu().numpy().tobytes())\n"
+            "print(h.hexdigest())\n")
+    digests = set()
+    for seed in ("1", "2"):
+        env = dict(os.environ, PYTHONHASHSEED=seed,
+                   PYTHONPATH=str(root / "src"))
+        digests.add(subprocess.run(
+            [sys.executable, "-c", code], cwd=root, capture_output=True,
+            text=True, check=True, timeout=300, env=env).stdout.strip())
+    assert len(digests) == 1 and len(next(iter(digests))) == 64
