@@ -167,7 +167,32 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    output. The ``[lm]`` line holds the server's tokens, seconds, tok/s
    and TTFT p50 / p99, the median decode step ms, the peak device
    memory, (b)'s seconds and the card. ``--only-lm`` runs this phase
-   alone (no build, no kernel or ok line).
+   alone (no build, no kernel or ok line);
+7. train   — LM training (``repro_torch.optim``, the train step of
+   ``repro_torch.models.steps``, ``repro_torch.launch.train``; plain
+   PyTorch under autograd, no kernel): (a) llama3.2-1b, mixtral-8x7b,
+   mamba2-1.3b (remat "block" on the card), hymba-1.5b (int8 moments),
+   seamless-m4t-medium and pixtral-12b (grad_accum 2 on the card against
+   the whole batch on the CPU) at ``reduced_model`` size in float32 (TF32
+   off), one set of seed-made weights on the CPU and the card, two steps
+   on ``DataPipeline.batch_at`` batches: loss, grad norm and the first
+   batch's gradients within 1e-4, every param within 1e-4 but for at
+   most 0.1 % of them (Adam's per-element normalisation amplifies the
+   rounding of a gradient near zero; with int8 moments a flipped code
+   too), counted; (b) ``python -m repro_torch.launch.train``'s ``main``
+   at full width and depth (llama3.2-1b, batch 4 x 1024, 8 steps, bf16
+   activations over f32 masters): every loss and grad norm finite, the
+   params moved, step 0's loss within 5e-2 of float32 activations'; the
+   median step ms, tok/s, the device ms a step (profiler), idle share,
+   peak memory, 6·N·T over 989 TFLOP/s; (c) ``launch.train`` at
+   llama100m's full config, 6 steps with a checkpoint every 3 against 3
+   steps then ``--resume`` for 3 more: params and optimizer state bit for
+   bit; (d) the deprecated ``run_vops`` at 1 M int32 lanes, one
+   ``fused_vops`` launch a call, bit for bit its plain version, and the
+   backends of ``examples/torch_quickstart.py`` on the card. One
+   ``[train]`` line per part and one JSON ``[train]`` line; ``--only-train``
+   runs this phase alone (builds only what (d) launches; no kernel or ok
+   line).
 
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers
@@ -177,7 +202,8 @@ path; the SSD scan as its three kernels, each with the whole call under
 ``workloads``, serving's launches and device ms by bucket size under
 ``serving``, phase 3t's numbers under ``telemetry``, phase 3d's under
 ``dse`` and phase 3v's launches and analyzer seconds under
-``verified``) and ``{"ok": true,
+``verified``; ``fused_vops`` with phase 7's ``run_vops`` calls under
+``run_vops``; phase 7's numbers under ``train``) and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -2270,12 +2296,462 @@ def run_lm(device, seed, card, log=print) -> dict:
             "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: LM training
+# ---------------------------------------------------------------------------
+
+#: phase 7 (a): one reduced arch of each family, two train steps on the
+#: card and on the CPU — (arch, Parallelism overrides on the card, the
+#: optimizer's moment dtype); grad_accum=2 on the card is held against
+#: the whole batch (grad_accum 1) on the CPU
+TRAIN_REDUCED = (("llama3.2-1b", {}, "float32"),
+                 ("mixtral-8x7b", {}, "float32"),
+                 ("mamba2-1.3b", {"remat": "block"}, "float32"),
+                 ("hymba-1.5b", {}, "int8"),          # grok's moment_dtype
+                 ("seamless-m4t-medium", {}, "float32"),
+                 ("pixtral-12b", {"grad_accum": 2}, "float32"))
+TRAIN_S, TRAIN_B, TRAIN_STEPS = 64, 4, 2
+#: an lr that moves the reduced weights well past the tolerance
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100)
+#: Adam's g / (sqrt(v) + eps) normalises each element, so the float32
+#: rounding of a gradient near zero can move its update by up to lr: at
+#: most TRAIN_ILL_SHARE of the params may land past the tolerance (the
+#: gradients themselves are held to it), each within TRAIN_STEP_BOUND x
+#: lr a step
+TRAIN_ILL_SHARE, TRAIN_STEP_BOUND = 1e-3, 4.0
+#: with int8 moments, a param whose m or v code differs between the two
+#: runs, or whose v code is within 1 of 0 (Adam then divides by a v
+#: quantized to about 0), may move by far more than lr: such params are
+#: counted with the others, and exempt from the step bound
+#: phase 7 (b): python -m repro_torch.launch.train at full width and depth
+#: (the config's bf16 activations over f32 master params)
+TRAIN_FULL = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "1024",
+              "--steps", "8", "--log-every", "1"]
+#: phase 7 (c): resume at llama100m's full config
+TRAIN_RESUME = ["--arch", "llama100m", "--batch", "4", "--seq", "1024",
+                "--ckpt-interval", "3", "--log-every", "3"]
+#: the card's dense bf16 peak (PERF.md §3), for the recorded MFU
+BF16_PEAK = 989e12
+#: phase 7 (d): run_vops at 1 M int32 lanes, these slot programs
+VOPS_LANES = 1 << 20
+VOPS_PROGRAMS = ([("kvmul", 2, 0, 1, 0), ("ksrav", 2, 2, None, 9),
+                  ("krelu", 2, 2, None, 0)],
+                 [("kaddv", 2, 0, 1, 0), ("ksvmulsc", 3, 2, None, -7),
+                  ("kvslt", 4, 3, 0, 0), ("ksubv", 5, 4, 1, 0)],
+                 [("ksvaddsc", 0, 0, None, 300), ("ksrlv", 1, 0, None, 2),
+                  ("ksvslt", 2, 1, None, 5), ("kvcp", 3, 2, None, 0)])
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _codes_apart(got_o, want_o) -> dict:
+    """int8 moments: each param path's mask of the elements whose m or v
+    code differs between two optimizer states, or whose v code is within
+    1 of 0 in either."""
+    from repro_torch.models import params as params_lib
+    out = {}
+    for which in ("m", "v"):
+        got = dict(params_lib.tree_leaves(got_o[which]))
+        for path, w in params_lib.tree_leaves(want_o[which]):
+            if not path.endswith("/q"):
+                continue
+            g, key = got[path], path[:-2]
+            mask = g != w
+            if which == "v":
+                mask |= (g.abs() <= 1) | (w.abs() <= 1)
+            out[key] = out[key] | mask if key in out else mask
+    return out
+
+
+def _train_close(name, got, want, steps: int, lr: float,
+                 exempt=None) -> dict:
+    """Params of two runs within ``LM_TOL["float32"]`` (rtol and atol) but
+    for at most TRAIN_ILL_SHARE of them (counted), each within the move
+    ``steps`` Adam steps can make unless ``exempt`` (int8 moments: a mask
+    a path, ``_codes_apart``) marks it. Returns the worst error of the
+    rest in units of the tolerance and the count past it."""
+    from repro_torch.models import params as params_lib
+    tol = LM_TOL["float32"]
+    got = dict(params_lib.tree_leaves(got))
+    worst, past, total = 0.0, 0, 0
+    for path, w in params_lib.tree_leaves(want):
+        diff = (got[path] - w).abs()
+        far = diff > TRAIN_STEP_BOUND * lr * steps * (1 + w.abs())
+        if exempt is not None:
+            far &= ~exempt[path]
+        if far.any():
+            raise AssertionError(f"{name} {path}: params apart by "
+                                 f"{float(diff[far].max())}")
+        bad = diff > tol * (1 + w.abs())
+        if (~bad).any():
+            worst = max(worst, float((diff / (tol * (1 + w.abs())))[~bad]
+                                     .max()))
+        past += int(bad.sum())
+        total += w.numel()
+    if past > TRAIN_ILL_SHARE * total:
+        raise AssertionError(f"{name}: {past} of {total} params past the "
+                             f"tolerance")
+    return {"worst": worst, "params_past_tol": past, "params": total}
+
+
+def _train_run(cfg, par, opt_cfg, params, data, device, routes=None,
+               force=None, flips=None):
+    """The first batch's gradients, then TRAIN_STEPS train steps, on
+    ``device`` from ``params`` (CPU tensors) on ``data``'s batches:
+    the gradients, per-step metrics, params and optimizer state on the
+    CPU. MoE
+    routes are recorded (``routes``) or forced (``force``), as phase 6
+    (a) does."""
+    import torch
+    from repro_torch.models import steps
+    from repro_torch.models.sharding import make_rules
+    from repro_torch.optim import adamw_init
+    rules = make_rules(None, cfg, par)
+    step = steps.make_train_step(cfg, rules, par, opt_cfg)
+    p = _tree_to(params, device)
+    o = adamw_init(p, opt_cfg)
+    metrics = []
+    ctx = (lm_routes(record=routes, force=force, flips=flips)
+           if cfg.num_experts else contextlib.nullcontext())
+    with ctx:
+        _, grads = steps.value_and_grad(
+            steps.make_loss_fn(cfg, rules, par), p,
+            {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(0).items()})
+        for s in range(TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in data.batch_at(s).items()}
+            p, o, m = step(p, o, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return _tree_to(grads, "cpu"), metrics, _tree_to(p, "cpu"), \
+        _tree_to(o, "cpu")
+
+
+def run_train_reduced(device, seed, log=print) -> dict:
+    """Phase 7 (a): one reduced arch of each family in float32 (TF32
+    off), TRAIN_STEPS steps on the CPU and on the card from one set of
+    seed-made weights on ``DataPipeline.batch_at`` batches: loss, grad
+    norm, the first batch's gradients and every updated param within
+    1e-4 (params as ``_train_close`` says)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import params as params_lib
+    from repro_torch.optim import OptimizerConfig
+    out = {}
+    for arch, card_par, moments in TRAIN_REDUCED:
+        t0 = time.perf_counter()
+        spec = configs.get_spec(arch)
+        cfg = configs.reduced_model(spec.model).replace(dtype="float32")
+        par = spec.parallelism.replace(remat="none", fsdp=False,
+                                       sequence_parallel=False)
+        opt_cfg = OptimizerConfig(moment_dtype=moments, **TRAIN_OPT)
+        params = params_lib.initialize(zoo.param_template(cfg), seed,
+                                       device="cpu")
+        data = DataPipeline(cfg, configs.ShapeConfig(
+            "t", "train", TRAIN_S, TRAIN_B), DataConfig(seed=seed))
+        routes, apart = [], []
+        want_g, want_m, want_p, want_o = _train_run(
+            cfg, par, opt_cfg, params, data, "cpu", routes=routes)
+        got_g, got_m, got_p, got_o = _train_run(
+            cfg, par.replace(**card_par), opt_cfg, params, data, device,
+            force=routes, flips=apart)
+        if routes or apart:
+            raise AssertionError(f"{arch}: {len(routes)} routes left, "
+                                 f"{len(apart)} routed apart in float32")
+        keys = ("total_loss", "grad_norm") if "grad_accum" in card_par \
+            else ("loss", "total_loss", "grad_norm")
+        for i, (g, w) in enumerate(zip(got_m, want_m)):
+            for k in keys:
+                if not np.isfinite(g[k]) or \
+                        abs(g[k] - w[k]) > 1e-4 * (1 + abs(w[k])):
+                    raise AssertionError(f"{arch} step {i} {k}: card {g[k]}, "
+                                         f"CPU {w[k]}")
+        grad_err = _lm_close(f"{arch} grads", _lm_np(got_g), _lm_np(want_g),
+                             "float32")
+        exempt = _codes_apart(got_o, want_o) if moments == "int8" else None
+        close = _train_close(arch, got_p, want_p, TRAIN_STEPS,
+                             TRAIN_OPT["lr"], exempt)
+        if exempt is not None:
+            close["int8_codes_apart_or_near_0"] = int(sum(
+                x.sum() for x in exempt.values()))
+        rec = dict(close, grad_worst=grad_err,
+                   card=dict(card_par, moment_dtype=moments),
+                   loss=[m["loss"] for m in got_m],
+                   grad_norm=[m["grad_norm"] for m in got_m],
+                   seconds=time.perf_counter() - t0)
+        out[arch] = rec
+        log(f"[train] (a) {arch}: the card equals the CPU over "
+            f"{TRAIN_STEPS} steps ({json.dumps(rec['card'])}"
+            f"{' against the whole batch' if 'grad_accum' in card_par else ''}"
+            f"): loss, grad norm and the first batch's grads within "
+            f"{grad_err:.4f} x 1e-4; params within {close['worst']:.4f} x "
+            f"1e-4 but {close['params_past_tol']} of {close['params']} "
+            f"(Adam-amplified rounding)")
+    return out
+
+
+def run_train_full(device, seed, log=print) -> dict:
+    """Phase 7 (b): ``python -m repro_torch.launch.train``'s ``main`` at
+    full width and depth (``TRAIN_FULL``): every loss and grad norm
+    finite, the params moved, step 0's loss within 5e-2 (relative) of
+    the same step with float32 activations; the median step ms, tok/s,
+    the device ms a step (profiler, two more steps), idle share, peak
+    memory, the MFU and the ten device events that take most of a step
+    (recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.micro import device_us
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import steps as steps_lib
+    from repro_torch.models.sharding import make_rules
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    report, buf = {}, io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(TRAIN_FULL + ["--seed", str(seed), "--device",
+                                      str(device)], report=report)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lines = buf.getvalue().splitlines()
+    steps = report["steps"]
+    if rc != 0 or len(steps) != 8 or not all(
+            np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
+            for s in steps):
+        raise AssertionError(f"launch.train: rc {rc}, steps {steps}")
+    cfg, data = report["cfg"], report["data"]
+    B, S = 4, 1024
+    # step 0 with float32 activations on the initial weights
+    par = train.build_trainer("llama3.2-1b", reduced=False, seq=S, batch=B,
+                              steps=8)[1]
+    init = params_lib.initialize(zoo.param_template(cfg), seed,
+                                 device=device)
+    moved = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(
+        params_lib.tree_leaves(init),
+        params_lib.tree_leaves(report["params"])))
+    if not moved > 0:
+        raise AssertionError("launch.train: the params did not move")
+    cfg32 = cfg.replace(dtype="float32")
+    batch0 = {k: torch.from_numpy(v).to(device)
+              for k, v in data.batch_at(0).items()}
+    with torch.no_grad():
+        _, m32 = steps_lib.make_loss_fn(
+            cfg32, make_rules(None, cfg32, par), par)(init, batch0)
+    loss32 = float(m32["loss"])
+    rel = abs(steps[0]["loss"] - loss32) / abs(loss32)
+    if rel > 5e-2:
+        raise AssertionError(f"step 0 loss {steps[0]['loss']} against "
+                             f"{loss32} with float32 activations: {rel}")
+    del init, m32, batch0
+    # two more steps in a profiler trace: the device's time a step
+    step_fn, p, o = report["train_step"], report["params"], \
+        report["opt_state"]
+    del report
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in data.batch_at(s).items()} for s in (8, 9)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            p, o, _ = step_fn(p, o, b)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_ms = sum(device_us(ev) for ev in events) / 1e3 / 2 \
+        or None                                 # None: the trace saw no card
+    top = sorted(((device_us(ev) / 1e3 / 2, ev.key) for ev in events),
+                 reverse=True)[:10]
+    del p, o, step_fn, batches
+    step_ms = [s["seconds"] * 1e3 for s in steps]
+    median_ms = float(np.median(step_ms[1:]))
+    n_params = zoo.param_count(cfg)
+    rec = {"step_ms": step_ms, "step_ms_median": median_ms,
+           "tok_per_s": B * S / (median_ms / 1e3),
+           "device_ms_per_step": device_ms,
+           "idle_share": None if device_ms is None else
+           1 - device_ms / median_ms,
+           "max_memory_allocated": peak,
+           "mfu_6nt": 6 * n_params * B * S / (median_ms / 1e3) / BF16_PEAK,
+           "params": n_params, "batch": B, "seq": S,
+           "loss": [s["loss"] for s in steps],
+           "grad_norm": [s["grad_norm"] for s in steps],
+           "step0_loss_float32": loss32, "step0_rel_err": rel,
+           "params_moved_max": moved, "main_s": main_s,
+           "top_device_ms_per_step": [[k, ms] for ms, k in top if ms],
+           "first_line": lines[0], "last_line": lines[-1]}
+    log(f"[train] (b) {lines[0]}; {lines[-1]}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_train_resume(device, seed, log=print) -> dict:
+    """Phase 7 (c): ``launch.train`` at llama100m's full config, 6 steps
+    with a checkpoint every 3, against 3 steps then ``--resume`` for 3
+    more: params and optimizer state equal bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import params as params_lib
+    ck = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ck, ignore_errors=True)
+    runs, secs, outs = {}, {}, {}
+    for name, extra in (("straight", ["--steps", "6", "--ckpt-dir",
+                                      str(ck / "a")]),
+                        ("first", ["--steps", "3", "--ckpt-dir",
+                                   str(ck / "b")]),
+                        ("resumed", ["--steps", "6", "--ckpt-dir",
+                                     str(ck / "b"), "--resume"])):
+        report, buf = {}, io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(TRAIN_RESUME + ["--seed", str(seed), "--device",
+                                            str(device)] + extra,
+                            report=report)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        outs[name] = buf.getvalue().splitlines()
+        if rc != 0:
+            raise AssertionError(f"launch.train {name}: rc {rc}")
+        if name != "first":
+            runs[name] = {"params": report["params"],
+                          "opt": report["opt_state"],
+                          "start": report["start_step"],
+                          "steps": report["steps"]}
+        del report
+    a, b = runs["straight"], runs["resumed"]
+    if b["start"] != 3 or "resumed from step 3" not in outs["resumed"]:
+        raise AssertionError(f"resume started at {b['start']}")
+    want = dict(params_lib.tree_leaves({"params": a["params"],
+                                        "opt": a["opt"]}))
+    got = dict(params_lib.tree_leaves({"params": b["params"],
+                                       "opt": b["opt"]}))
+    unequal = [k for k in want if not torch.equal(got[k], want[k])]
+    if set(got) != set(want) or unequal:
+        raise AssertionError(f"resumed state differs from the straight "
+                             f"run at {unequal[:5]}")
+    ckpt_bytes = sum(f.stat().st_size for f in (ck / "a").rglob("*")
+                     if f.is_file())
+    rec = {"leaves_bit_equal": len(want), "seconds": secs,
+           "losses_straight": [s["loss"] for s in a["steps"]],
+           "losses_resumed": [s["loss"] for s in b["steps"]],
+           "checkpoint_bytes": ckpt_bytes}
+    log(f"[train] (c) llama100m: 6 steps straight = 3 + --resume 3, "
+        f"{len(want)} leaves of params and optimizer state bit for bit; "
+        f"seconds {json.dumps(secs)}")
+    del runs, a, b, want, got
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_train_vops(device, seed, log=print) -> dict:
+    """Phase 7 (d): the deprecated ``run_vops`` shim at VOPS_LANES int32
+    lanes, one ``fused_vops`` launch a call, bit for bit the plain
+    version on the same card tensors and on the CPU; then the backends of
+    ``examples/torch_quickstart.py`` on the card."""
+    import importlib.util
+    import warnings
+    import torch
+    from repro_torch.kernels import fused_vops as fv
+    from repro_torch.kernels import kvi_walk as kw
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.kvi_vops import run_vops
+    rng = np.random.default_rng(seed)
+    a, b = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, VOPS_LANES,
+                                          dtype=np.int64).astype(np.int32))
+            for _ in range(2))
+    ac, bc = a.to(device), b.to(device)
+    fv.launch_count = kw.launch_count = 0
+    times = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for prog in VOPS_PROGRAMS:
+            got = run_vops(prog, [ac, bc])
+            torch.cuda.synchronize()
+            if not (torch.equal(got, ref.vops_ref(prog, [ac, bc])) and
+                    torch.equal(got.cpu(), run_vops(prog, [a, b]))):
+                raise AssertionError(f"run_vops {prog}: the card differs "
+                                     f"from the plain version")
+        launches = fv.launch_count
+        for prog in VOPS_PROGRAMS:
+            times.append({"ms": events_ms(lambda: run_vops(prog, [ac, bc]),
+                                          20),
+                          "plain_ms": events_ms(
+                              lambda: ref.vops_ref(prog, [ac, bc]), 20)})
+    if launches != len(VOPS_PROGRAMS):
+        raise AssertionError(f"run_vops: {launches} fused_vops launches for "
+                             f"{len(VOPS_PROGRAMS)} calls")
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    kw.launch_count = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        outs = qs.write_once_run_everywhere(device)
+        qs.conv_differential(device)        # asserts the three agree
+    torch.cuda.synchronize()
+    if not all(np.array_equal(v, outs["oracle"]) for v in outs.values()) \
+            or not kw.launch_count:
+        raise AssertionError(f"quickstart on the card: {outs}, "
+                             f"{kw.launch_count} kvi_walk launches")
+    rec = {"lanes": VOPS_LANES, "programs": len(VOPS_PROGRAMS),
+           "fused_vops_launches": launches, "times": times,
+           "quickstart_kvi_walk_launches": kw.launch_count}
+    log(f"[train] (d) run_vops at {VOPS_LANES} int32 lanes equals its "
+        f"plain version bit for bit, {launches} fused_vops launches for "
+        f"{len(VOPS_PROGRAMS)} calls; quickstart's oracle / cyclesim / "
+        f"torch backends agree on the card ({kw.launch_count} kvi_walk "
+        f"launches)")
+    return rec
+
+
+def run_train(device, seed, card, log=print) -> dict:
+    """Phase 7: (a) one reduced arch of each family, the card against the
+    CPU; (b) ``launch.train`` at full width; (c) resume bit for bit; (d)
+    ``run_vops`` and the quickstart's backends. (a)-(c) launch no kernel
+    of the port: the zoo calls the plain layers, as the reference's does.
+    Returns the ``[train]`` line's numbers."""
+    t = [time.perf_counter()]
+    phase_s = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t[0]
+        t[0] = now
+
+    before = kernel_launches()
+    reduced = run_train_reduced(device, seed, log)
+    lap("reduced")
+    full = run_train_full(device, seed, log)
+    lap("full_width")
+    resume = run_train_resume(device, seed, log)
+    lap("resume")
+    if kernel_launches() != before:
+        raise AssertionError("the training path launched a kernel of the "
+                             "port")
+    vops = run_train_vops(device, seed, log)
+    lap("run_vops")
+    keys = ("step_ms_median", "tok_per_s", "device_ms_per_step",
+            "idle_share", "max_memory_allocated", "mfu_6nt")
+    return dict({k: full[k] for k in keys}, full_width=full, reduced=reduced,
+                resume=resume, run_vops=vops, phase_s=phase_s, card=card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only-lm", action="store_true",
                     help="run phase 6 alone (no build; no kernel or ok "
                          "line)")
+    ap.add_argument("--only-train", action="store_true",
+                    help="run phase 7 alone (builds only fused_vops and "
+                         "kvi_walk; no kernel or ok line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2312,8 +2788,18 @@ def main(argv=None) -> int:
         print(f"[lm] {json.dumps(lm)}")
         stamp("lm")
 
+    def train_phase():
+        train = run_train(device, args.seed, card,
+                          log=lambda m: print(f"{m}; card: {card}"))
+        print(f"[train] {json.dumps(train)}; card: {card}")
+        stamp("train")
+        return train
+
     if args.only_lm:
         lm_phase()
+        return 0
+    if args.only_train:
+        train_phase()
         return 0
 
     # 1. build -------------------------------------------------------------
@@ -2591,9 +3077,18 @@ def main(argv=None) -> int:
 
     # 6. the LM model zoo and LM serving ------------------------------------
     lm_phase()
+
+    # 7. LM training, run_vops ----------------------------------------------
+    train = train_phase()
+    fused = next(k for k in kernels if k["name"] == "fused_vops")
+    fused["run_vops"] = {"launches": train["run_vops"]["fused_vops_launches"],
+                         "lanes": VOPS_LANES,
+                         "times": train["run_vops"]["times"]}
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "train": {
+        k: v for k, v in train.items() if k not in ("reduced", "full_width",
+                                                      "resume")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,3 +1,2 @@
 """Entry points of the port's LM framework: ``python -m
-repro_torch.launch.serve`` (the training entry point waits for the optimizer's
-port)."""
+repro_torch.launch.serve`` and ``python -m repro_torch.launch.train``."""

@@ -1,0 +1,146 @@
+"""Training driver: config-driven, checkpointed, fault-tolerant; the port of
+the reference's ``repro/launch/train.py`` on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+      --reduced --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
+      --device cpu
+
+The card is the default device (no fallback); ``--device cpu`` runs the
+same step on the CPU. Fault tolerance: periodic async checkpoints in the
+reference's format, a preemption-triggered sync save, resume from
+``LATEST``. A mesh (the reference's multi-host path) waits for ROADMAP.md
+queue 1 item 7.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager, latest_step
+from repro_torch.configs import get_spec, reduced_model
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data.pipeline import DataConfig, DataPipeline
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import model_zoo as zoo
+from repro_torch.models import params as params_lib
+from repro_torch.models import steps as steps_lib
+from repro_torch.models.sharding import make_rules
+from repro_torch.optim.optimizer import OptimizerConfig, adamw_init
+from repro_torch.runtime.fault_tolerance import PreemptionGuard
+
+
+def build_trainer(arch: str, *, reduced: bool, seq: int, batch: int,
+                  steps: int, mesh=None, data_path=None, seed=0,
+                  lr: float = 3e-4):
+    spec = get_spec(arch)
+    cfg = reduced_model(spec.model) if reduced else spec.model
+    # one device: no remat, no FSDP, no sequence parallelism (a mesh is
+    # refused by make_rules)
+    par = spec.parallelism if mesh is not None else \
+        spec.parallelism.replace(remat="none", fsdp=False,
+                                 sequence_parallel=False)
+    shape = ShapeConfig("train", "train", seq, batch)
+    rules = make_rules(mesh, cfg, par)
+    opt_cfg = OptimizerConfig(lr=lr, total_steps=steps,
+                              warmup_steps=max(10, steps // 20),
+                              moment_dtype=par.moment_dtype)
+    train_step = steps_lib.make_train_step(cfg, rules, par, opt_cfg)
+    data = DataPipeline(cfg, shape, DataConfig(
+        source="file" if data_path else "synthetic", path=data_path,
+        seed=seed))
+    return cfg, par, shape, rules, train_step, data, opt_cfg
+
+
+def main(argv=None, *, report: dict = None) -> int:
+    """Train and print the reference's lines. A caller that passes a dict
+    as ``report`` gets the run back in it: ``params``, ``opt_state``,
+    ``start_step``, ``steps`` (one dict a step run: ``step``, ``loss``,
+    ``grad_norm``, ``lr``, ``seconds``, the last read after the step's
+    metrics reach the host), ``train_step``, ``data``, ``cfg``,
+    ``device``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-interval", type=int, default=50)
+    ap.add_argument("--data", default="", help="text file (byte tokenizer)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg, par, shape, rules, train_step, data, opt_cfg = build_trainer(
+        args.arch, reduced=args.reduced, seq=args.seq, batch=args.batch,
+        steps=args.steps, data_path=args.data or None, seed=args.seed,
+        lr=args.lr)
+
+    n_params = zoo.param_count(cfg)
+    print(f"arch={args.arch} reduced={args.reduced} params={n_params:,} "
+          f"seq={args.seq} batch={args.batch}")
+
+    template = zoo.param_template(cfg)
+    params = params_lib.initialize(template, args.seed, device=device)
+    opt_state = adamw_init(params, opt_cfg)
+    start_step = 0
+
+    ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval) \
+        if args.ckpt_dir else None
+    if ckpt and args.resume and latest_step(args.ckpt_dir) is not None:
+        tree = {"params": params, "opt": opt_state}
+        tree, start_step = ckpt.restore_latest(tree, device=device)
+        params, opt_state = tree["params"], tree["opt"]
+        print(f"resumed from step {start_step}")
+
+    losses, steps_run = [], []
+    t_last = time.time()
+    with PreemptionGuard() as guard:
+        for step in range(start_step, args.steps):
+            t0 = time.perf_counter()
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in data.batch_at(step).items()}
+            params, opt_state, metrics = train_step(params, opt_state, batch)
+            if report is not None:
+                steps_run.append({k: float(metrics[k]) for k in
+                                  ("loss", "grad_norm", "lr")})
+                steps_run[-1].update(step=step,
+                                     seconds=time.perf_counter() - t0)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                loss = float(metrics["loss"])
+                losses.append((step, loss))
+                dt = time.time() - t_last
+                t_last = time.time()
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)",
+                      flush=True)
+            if ckpt:
+                ckpt.maybe_save(step + 1, {"params": params, "opt": opt_state},
+                                force=guard.requested)
+            if guard.requested:
+                print("preemption requested: checkpoint saved, exiting")
+                break
+    if ckpt:
+        ckpt.wait()
+    if len(losses) >= 2:
+        print(f"loss {losses[0][1]:.4f} -> {losses[-1][1]:.4f} "
+              f"({'improved' if losses[-1][1] < losses[0][1] else 'NOT improved'})")
+    data.close()
+    if report is not None:
+        report.update(params=params, opt_state=opt_state,
+                      start_step=start_step, steps=steps_run,
+                      train_step=train_step, data=data, cfg=cfg,
+                      device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

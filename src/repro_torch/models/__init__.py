@@ -4,7 +4,6 @@
 of the attention and SSD kernels; ``sharding`` (the logical-axis rules,
 no mesh), ``params`` (templates, seeded init, weights carried across
 from the reference), ``moe``, ``model_zoo`` (every family's templates
-and forward passes) and ``steps`` (prefill and decode; the train step
-waits for the optimizer)."""
+and forward passes) and ``steps`` (train, prefill and decode)."""
 from repro_torch.models import (layers, model_zoo, moe, params,  # noqa: F401
                                 sharding, ssm, steps)

@@ -10,8 +10,10 @@ dispatch on cfg.family. Layers are stacked along a leading "layers" axis,
 as the reference's (so a reference tree maps 1:1), and the reference's
 ``lax.scan`` over them is a loop over ``l``. Like the reference's, the
 zoo calls the plain layers (``flash_attention_xla``, ``decode_attention``,
-``ssd_chunked``), not the kernels. ``par.remat`` matters only under
-autograd, which serving does not run.
+``ssd_chunked``), not the kernels. ``par.remat`` ("block" or "full")
+recomputes each block body in the backward, as the reference's
+``jax.checkpoint`` does: ``torch.utils.checkpoint`` around the body, only
+where autograd records (serving runs none, so remat leaves it as is).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, Parallelism
 from repro_torch.models import moe as moe_lib
@@ -195,6 +198,18 @@ def _layer(tree, l: int):
     """Layer ``l`` of a tree stacked along its leading "layers" axis."""
     return tree_map(lambda x: x[l], tree,
                     is_leaf=lambda x: not isinstance(x, dict))
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a tree stacked along its leading
+    "layers" axis, one ``unbind`` a leaf: under autograd its backward is
+    one stack, where indexing each layer (``_layer``) would add ``n``
+    gradients of the whole stacked leaf."""
+    per_leaf = tree_map(lambda x: x.unbind(0), tree,
+                        is_leaf=lambda x: not isinstance(x, dict))
+    return [tree_map(lambda t: t[l], per_leaf,
+                     is_leaf=lambda x: isinstance(x, tuple))
+            for l in range(n)]
 
 
 def _stack(trees: list):
@@ -390,16 +405,28 @@ def _decoder_block(lp, x, positions, cfg, rules, par, cache_in=None,
     return x, cache_out, aux
 
 
+def _remat(body, par: Parallelism):
+    """``body`` recomputed in the backward when ``par.remat`` asks for it
+    ("block" or "full": the reference's ``jax.checkpoint`` with its
+    default policy or saving nothing, both a recompute of the whole body
+    here) and autograd is recording."""
+    if par.remat in ("block", "full") and torch.is_grad_enabled():
+        return lambda *args, **kw: checkpoint(body, *args,
+                                              use_reentrant=False, **kw)
+    return body
+
+
 def decoder_forward(params, cfg: ModelConfig, rules: Rules, par: Parallelism,
                     x, positions, cache=None, decode=False):
     """x: [B,S,D] embedded input. Returns (hidden, new_layer_cache, aux)."""
     blocks = params["blocks"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     outs = []
-    for l in range(cfg.num_layers):
+    block = _remat(_decoder_block, par)
+    for l, lp in enumerate(_layers(blocks, cfg.num_layers)):
         cache_l = None if cache is None else _layer(cache["layers"], l)
-        x, cache_out, a = _decoder_block(
-            _layer(blocks, l), x, positions, cfg, rules, par,
+        x, cache_out, a = block(
+            lp, x, positions, cfg, rules, par,
             cache_in=cache_l, decode=decode)
         aux = aux + a
         outs.append(cache_out)
@@ -417,16 +444,20 @@ def encoder_forward(params, cfg, rules, par, frames):
     x = torch.einsum("bsd,de->bse", frames.to(dtype),
                      params["frontend_adapter"].to(dtype))
     positions = _positions(frames.shape[0], frames.shape[1], frames.device)
-    for l in range(cfg.encoder_layers):
-        lp = _layer(params["enc_blocks"], l)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        att, _ = _attn_forward(lp["attn"], h, positions, cfg, rules, par,
-                               causal=False)
-        x = x + att
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _ffn_forward(lp["ffn"], h2, cfg, rules)
-        x = rules.constrain(x, "batch", "seq_sp", None)
+    block = _remat(_encoder_block, par)
+    for lp in _layers(params["enc_blocks"], cfg.encoder_layers):
+        x = block(lp, x, positions, cfg, rules, par)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _encoder_block(lp, x, positions, cfg, rules, par):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    att, _ = _attn_forward(lp["attn"], h, positions, cfg, rules, par,
+                           causal=False)
+    x = x + att
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    x = x + _ffn_forward(lp["ffn"], h2, cfg, rules)
+    return rules.constrain(x, "batch", "seq_sp", None)
 
 
 def _encdec_block(lp, x, positions, cfg, rules, par, enc_out, cache_l,
@@ -475,11 +506,11 @@ def encdec_decoder_forward(params, cfg, rules, par, x, positions, enc_out,
     """Decoder with self + cross attention. enc_out: [B,S_enc,D] (train) or
     None (decode: cross K/V live in the cache)."""
     outs = []
-    for l in range(cfg.num_layers):
+    block = _remat(_encdec_block, par)
+    for l, lp in enumerate(_layers(params["blocks"], cfg.num_layers)):
         cache_l = None if cache is None else _layer(cache["layers"], l)
-        x, cache_out = _encdec_block(_layer(params["blocks"], l), x,
-                                     positions, cfg, rules, par, enc_out,
-                                     cache_l, decode)
+        x, cache_out = block(lp, x, positions, cfg, rules, par, enc_out,
+                             cache_l, decode)
         outs.append(cache_out)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, _stack(outs), torch.zeros((), dtype=torch.float32,

@@ -1,11 +1,12 @@
-"""Step functions (prefill / decode) + cache & input templates, the port
-of the reference's ``repro/models/steps.py``.
+"""Step functions (train / prefill / decode) + cache & input templates,
+the port of the reference's ``repro/models/steps.py``.
 
 Everything here is shape-polymorphic over (arch, shape) cells; shardings
 come from the logical-axis Rules, which on one device constrain nothing.
-The steps run eagerly under ``torch.inference_mode()`` on the device of
-the params they are given. The train step (``make_loss_fn``,
-``make_train_step``) waits for the optimizer (ROADMAP.md queue 1).
+The steps run eagerly on the device of the params they are given: prefill
+and decode under ``torch.inference_mode()``, the train step under
+autograd (gradients through the plain layers, then the reference's AdamW
+from ``repro_torch.optim``).
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, Parallelism, ShapeConfig
 from repro_torch.models import model_zoo as zoo
-from repro_torch.models.params import P, torch_dtype, tree_map
+from repro_torch.models.params import (P, _unflatten, torch_dtype,
+                                       tree_leaves, tree_map)
 from repro_torch.models.sharding import Rules
+from repro_torch.optim.optimizer import OptimizerConfig, adamw_update
 
 LABEL_IGNORE = -100
 
@@ -190,9 +193,100 @@ def forward_train(params, cfg, rules, par, batch):
     return logits, batch["labels"], aux
 
 
+def make_loss_fn(cfg: ModelConfig, rules: Rules, par: Parallelism):
+    def loss_fn(params, batch):
+        logits, labels, aux = forward_train(params, cfg, rules, par, batch)
+        nll, z = softmax_xent(logits, labels, cfg.vocab_size)
+        loss = nll + 1e-4 * z + 1e-2 * aux
+        return loss, {"loss": nll, "z_loss": z, "aux_loss": aux}
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``((loss, metrics), grads)`` of ``loss_fn(params, batch)`` through
+    ``torch.autograd``: the reference's ``jax.value_and_grad(...,
+    has_aux=True)``. Grads have the params' dtypes (zeros where a leaf
+    does not reach the loss); nothing is left attached to a graph."""
+    names = [name for name, x in tree_leaves(params)
+             if x.is_floating_point()]
+    flat = dict(tree_leaves(params))
+    leaves = {name: flat[name].detach().requires_grad_(True)
+              for name in names}
+    diff = _unflatten(params, {**flat, **leaves})
+    with torch.enable_grad():
+        loss, metrics = loss_fn(diff, batch)
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names],
+                                    allow_unused=True)
+    g = {n: torch.zeros_like(leaves[n]) if x is None else x
+         for n, x in zip(names, grads)}
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            _unflatten(params, {**flat, **g}))
+
+
+def _cast_floating(tree, dtype):
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree, is_leaf=lambda x: not isinstance(x, dict))
+
+
+def _add(a, b):
+    if isinstance(a, dict):
+        return {k: _add(a[k], b[k]) for k in a}
+    return a + b
+
+
 # ---------------------------------------------------------------------------
 # step factories
 # ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
+                    opt_cfg: OptimizerConfig):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradients through autograd (eagerly,
+    outside ``inference_mode``), then ``adamw_update``. Functional: the
+    arguments are left as they are."""
+    loss_fn = make_loss_fn(cfg, rules, par)
+
+    if par.mixed_precision:
+        # bf16 compute params (their cotangents run in bf16); the f32
+        # params stay the master copy updated by AdamW
+        base_loss_fn = loss_fn
+
+        def loss_fn(params, batch):  # noqa: F811 — deliberate wrap
+            return base_loss_fn(_cast_floating(params, torch.bfloat16),
+                                batch)
+
+    def train_step(params, opt_state, batch):
+        if par.grad_accum > 1:
+            # the reference's lax.scan over micro-batches as a loop: loss
+            # and grads summed in float32, then averaged; the metrics are
+            # the last micro-batch's
+            B = next(iter(batch.values())).shape[0]
+            micro = B // par.grad_accum
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=next(iter(batch.values())).device)
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device),
+                             params, is_leaf=lambda x: not isinstance(x,
+                                                                      dict))
+            for i in range(par.grad_accum):
+                mb = {k: v[i * micro:(i + 1) * micro]
+                      for k, v in batch.items()}
+                (l, metrics), g = value_and_grad(loss_fn, params, mb)
+                grads = _add(grads, g)
+                loss = loss + l
+            loss = loss / par.grad_accum
+            grads = tree_map(lambda g: g / par.grad_accum, grads,
+                             is_leaf=lambda x: not isinstance(x, dict))
+        else:
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+        params, opt_state, opt_metrics = adamw_update(grads, opt_state,
+                                                      params, opt_cfg)
+        metrics = dict(metrics, total_loss=loss, **opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
+
 
 def _zeros(template, device):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch_dtype(p.dtype),
@@ -253,11 +347,11 @@ def make_decode_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
     return decode_step
 
 
-def make_step(cfg, rules, par, shape, opt_cfg: Optional[object] = None):
+def make_step(cfg, rules, par, shape,
+              opt_cfg: Optional[OptimizerConfig] = None):
     if shape.kind == "train":
-        raise NotImplementedError(
-            "the train step waits for the optimizer's port (ROADMAP.md "
-            "queue 1, the training stack)")
+        return make_train_step(cfg, rules, par, opt_cfg or OptimizerConfig(
+            moment_dtype=par.moment_dtype))
     if shape.kind == "prefill":
         return make_prefill_step(cfg, rules, par, shape)
     return make_decode_step(cfg, rules, par, shape)

@@ -744,3 +744,83 @@ def test_lm_initialize_on_the_card_is_the_same_in_two_processes(card):
             [sys.executable, "-c", code], cwd=root, capture_output=True,
             text=True, check=True, timeout=300, env=env).stdout.strip())
     assert len(digests) == 1 and len(next(iter(digests))) == 64
+
+
+#: the train step's card-vs-CPU check: Adam's g / (sqrt(v) + eps)
+#: normalises each element, so float32 rounding of a gradient near zero
+#: can move its update by up to lr; at most this share of the params may
+#: land past 1e-4 (each within 4 x lr a step), the gradients are held
+#: to 1e-4
+LM_ILL_SHARE = 1e-3
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mixtral-8x7b"])
+def test_lm_train_step_on_the_card_equals_the_cpu(card, arch):
+    """Two train steps of a reduced arch in float32 from one set of
+    weights on DataPipeline batches: the first batch's gradients, loss,
+    grad norm and every updated param on the card within 1e-4 of the
+    CPU's (params as above); the optimizer's count equal."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, DataPipeline
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import steps
+    from repro_torch.models.sharding import make_rules
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    cfg, par, params = _lm_parts(arch)
+    rules = make_rules(None, cfg, par)
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    data = DataPipeline(cfg, ShapeConfig("t", "train", 64, 2), DataConfig())
+    runs = []
+    for device in ("cpu", card):
+        step = steps.make_train_step(cfg, rules, par, opt_cfg)
+        p = _to(params, device)
+        o = adamw_init(p, opt_cfg)
+        _, grads = steps.value_and_grad(
+            steps.make_loss_fn(cfg, rules, par), p,
+            {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(0).items()})
+        metrics = []
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in data.batch_at(s).items()}
+            p, o, m = step(p, o, batch)
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        runs.append((metrics, _to(p, "cpu"), _to(o, "cpu"),
+                     _to(grads, "cpu")))
+    (want_m, want_p, want_o, want_g), (got_m, got_p, got_o, got_g) = runs
+    for name, w in params_lib.tree_leaves(want_g):
+        np.testing.assert_allclose(dict(params_lib.tree_leaves(got_g))[
+            name].numpy(), w.numpy(), rtol=1e-4, atol=1e-4, err_msg=name)
+    for g, w in zip(got_m, want_m):
+        for k in w:
+            assert g[k] == pytest.approx(w[k], rel=1e-4, abs=1e-4), k
+    assert int(got_o["count"]) == int(want_o["count"]) == 2
+    past = total = 0
+    got_leaves = dict(params_lib.tree_leaves(got_p))
+    for name, w in params_lib.tree_leaves(want_p):
+        diff = (got_leaves[name] - w).abs()
+        assert (diff <= 4 * opt_cfg.lr * 2 * (1 + w.abs())).all(), name
+        past += int((diff > 1e-4 * (1 + w.abs())).sum())
+        total += w.numel()
+    assert past <= LM_ILL_SHARE * total, (past, total)
+
+
+def test_run_vops_on_the_card_equals_plain(card):
+    """The deprecated run_vops shim at 1 M int32 lanes: one fused_vops
+    launch on the card, bit for bit its CPU (plain) result."""
+    import warnings
+    from repro_torch.kernels.kvi_vops import run_vops
+    rng = np.random.default_rng(11)
+    a, b = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, 1 << 20,
+                                          dtype=np.int64).astype(np.int32))
+            for _ in range(2))
+    prog = [("kvmul", 2, 0, 1, 0), ("ksrav", 2, 2, None, 5),
+            ("kaddv", 3, 2, 0, 0), ("krelu", 3, 3, None, 0)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        want = run_vops(prog, [a, b])
+        before = fv.launch_count
+        got = run_vops(prog, [a.to(card), b.to(card)])
+        torch.cuda.synchronize()
+    assert fv.launch_count == before + 1
+    assert got.is_cuda and torch.equal(got.cpu(), want)
