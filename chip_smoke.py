@@ -192,6 +192,26 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    backends of ``examples/torch_quickstart.py`` on the card. One
    ``[train]`` line per part and one JSON ``[train]`` line; ``--only-train``
    runs this phase alone (builds only what (d) launches; no kernel or ok
+   line);
+8. mesh    — the mesh paths (``repro_torch.launch.mesh``, DTensor
+   placements from ``models.sharding``, ``models.pipeline``; no kernel)
+   on a one-rank NCCL group (``file://`` rendezvous in a temporary
+   directory) and a 1x1 ("data", "model") ``DeviceMesh``: (a)
+   ``build_trainer(mesh=)`` for llama3.2-1b, mixtral-8x7b and
+   mamba2-1.3b at ``reduced_model`` size in float32, 2 steps, losses and
+   the first batch's gradients within 1e-4 of ``mesh=None`` on the card;
+   (b) ``build_trainer(mesh=)`` for llama3.2-1b at phase 7 (b)'s batch
+   (4 x 1024) with the arch's own remat, 3 steps, step 0's loss within
+   1e-4 (relative) of the one-device loss and of phase 7 (b)'s; step ms,
+   tok/s and peak memory beside phase 7 (b)'s; (c) (b)'s params and step
+   count saved from the mesh and restored with ``shardings=``, bit for
+   bit; (d) ``cross_pod_mean(mesh=)`` on a 1x1x1 pod mesh equal to
+   ``mesh=None`` bit for bit; (e) ``pipeline_apply`` with one stage
+   within 1e-5 of ``unpipelined_reference``; (f) ``analyze_step`` over
+   one more step of (b): its dot FLOPs equal to ``FlopCounterMode``'s
+   on the step after, and their ratio to 6·N·T. One ``[mesh]`` line a
+   part and one JSON ``[mesh]`` line; the group is destroyed at the end;
+   ``--only-mesh`` runs this phase alone (no build; no kernel or ok
    line).
 
 Any failed check raises, and the script exits non-zero. The last lines
@@ -203,8 +223,8 @@ path; the SSD scan as its three kernels, each with the whole call under
 ``serving``, phase 3t's numbers under ``telemetry``, phase 3d's under
 ``dse`` and phase 3v's launches and analyzer seconds under
 ``verified``; ``fused_vops`` with phase 7's ``run_vops`` calls under
-``run_vops``; phase 7's numbers under ``train``) and ``{"ok": true,
-"device": {...}}``.
+``run_vops``; phase 7's numbers under ``train``, phase 8's under
+``mesh``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2743,6 +2763,317 @@ def run_train(device, seed, card, log=print) -> dict:
                 resume=resume, run_vops=vops, phase_s=phase_s, card=card)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh paths
+# ---------------------------------------------------------------------------
+
+#: phase 8 (a): reduced archs trained on the card's 1x1 mesh against
+#: ``mesh=None`` (float32; the mesh takes the arch's own Parallelism)
+MESH_REDUCED = ("llama3.2-1b", "mixtral-8x7b", "mamba2-1.3b")
+#: phase 8 (b): llama3.2-1b at phase 7 (b)'s batch (B, S) on the mesh,
+#: the arch's own remat ("block"), these many steps
+MESH_FULL_BATCH, MESH_FULL_STEPS = (4, 1024), 3
+#: phase 8 (d), (e): a gradient tree for cross_pod_mean, the pipeline's
+#: stage width and batch
+MESH_CROSS = {"w": (2048, 8192), "b": (8192,)}
+MESH_PIPE_D, MESH_PIPE_B = 1024, 64
+
+
+@contextlib.contextmanager
+def one_rank_group(device):
+    """A default process group of one rank (NCCL on the card, gloo on the
+    CPU) over a ``file://`` rendezvous in a temporary directory, destroyed
+    with the directory on exit."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _whole(x):
+    from repro_torch.compat import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _mesh_train(arch, mesh, device, seed, *, reduced, batch, seq, steps,
+                overrides=None):
+    """``build_trainer(mesh=)``'s state and step run ``steps`` steps on
+    ``DataPipeline.batch_at`` batches: the first batch's gradients, the
+    losses and each step's seconds, the final state and the trainer."""
+    import torch
+    from repro_torch.compat import implicit_replication
+    from repro_torch.launch import train
+    from repro_torch.models import steps as steps_lib
+    cfg, par, shape, rules, step, data, opt_cfg = train.build_trainer(
+        arch, reduced=reduced, seq=seq, batch=batch, steps=steps, mesh=mesh,
+        seed=seed, overrides=overrides)
+    params, opt = train.init_state(cfg, rules, opt_cfg, seed, device)
+    grads = None
+    if reduced:
+        b0 = train.place_batch(data.batch_at(0), cfg, shape, rules, device)
+        with implicit_replication():
+            _, grads = steps_lib.value_and_grad(
+                steps_lib.make_loss_fn(cfg, rules, par), params, b0)
+    losses, seconds = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        b = train.place_batch(data.batch_at(i), cfg, shape, rules, device)
+        params, opt, m = step(params, opt, b)
+        losses.append(float(_whole(m["loss"])))
+        seconds.append(time.perf_counter() - t0)
+    del b, m
+    return dict(cfg=cfg, par=par, shape=shape, rules=rules, step=step,
+                data=data, grads=grads, losses=losses, seconds=seconds,
+                params=params, opt=opt)
+
+
+def run_mesh_reduced(device, seed, mesh, log=print) -> dict:
+    """Phase 8 (a): each of MESH_REDUCED at ``reduced_model`` size in
+    float32, 2 steps through ``build_trainer(mesh=)`` on the 1x1 mesh
+    and through ``mesh=None`` on the same device: losses and the first
+    batch's gradients within 1e-4."""
+    from repro_torch.models import params as params_lib
+    out = {}
+    for arch in MESH_REDUCED:
+        t0 = time.perf_counter()
+        kw = dict(reduced=True, batch=TRAIN_B, seq=TRAIN_S, steps=2,
+                  overrides={"dtype": "float32"})
+        one = _mesh_train(arch, None, device, seed, **kw)
+        on = _mesh_train(arch, mesh, device, seed, **kw)
+        for i, (g, w) in enumerate(zip(on["losses"], one["losses"])):
+            if abs(g - w) > 1e-4 * (1 + abs(w)):
+                raise AssertionError(f"{arch} step {i}: mesh loss {g}, one "
+                                     f"device {w}")
+        got = dict(params_lib.tree_leaves(on["grads"]))
+        worst = 0.0
+        for path, w in params_lib.tree_leaves(one["grads"]):
+            err = float(((_whole(got[path]) - w).abs() /
+                         (1e-4 * (1 + w.abs()))).max())
+            if err > 1:
+                raise AssertionError(f"{arch} grad {path}: {err} x 1e-4")
+            worst = max(worst, err)
+        out[arch] = {"loss_mesh": on["losses"], "loss_one": one["losses"],
+                     "grad_worst": worst, "par": {
+                         k: getattr(on["par"], k) for k in
+                         ("fsdp", "sequence_parallel", "remat")},
+                     "seconds": time.perf_counter() - t0}
+        log(f"[mesh] (a) {arch}: build_trainer(mesh=1x1) equals mesh=None "
+            f"over 2 steps: losses {on['losses']}, first grads within "
+            f"{worst:.4f} x 1e-4 ({json.dumps(out[arch]['par'])})")
+    return out
+
+
+def run_mesh_full(device, seed, mesh, train7=None, log=print) -> dict:
+    """Phase 8 (b), (c), (f): llama3.2-1b at phase 7 (b)'s batch through
+    ``build_trainer(mesh=)`` with the arch's own remat, MESH_FULL_STEPS
+    steps: step 0's loss equal (1e-4 relative) to the one-device loss of
+    the same weights and batch and to phase 7 (b)'s (when it ran); the
+    step ms, tok/s and peak memory. (c) the params and step count saved
+    from the mesh and restored with ``shardings=``, bit for bit. (f) one
+    more step under ``analyze_step``: per-device dot FLOPs against
+    ``FlopCounterMode`` on a step after it and against 6·N·T."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.launch.hlo_analysis import (analyze_step,
+                                                 xla_cost_analysis)
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import steps as steps_lib
+    from repro_torch.models.sharding import make_rules
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    B, S = MESH_FULL_BATCH
+    t0 = time.perf_counter()
+    run = _mesh_train("llama3.2-1b", mesh, device, seed, reduced=False,
+                      batch=B, seq=S, steps=MESH_FULL_STEPS)
+    cfg, par, rules = run["cfg"], run["par"], run["rules"]
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    # step 0's loss on one device: the same seeded weights and batch
+    init = params_lib.initialize(zoo.param_template(cfg), seed,
+                                 device=device)
+    with torch.no_grad():
+        _, m1 = steps_lib.make_loss_fn(cfg, make_rules(None, cfg, par), par)(
+            init, {k: torch.from_numpy(v).to(device)
+                   for k, v in run["data"].batch_at(0).items()})
+    del init
+    loss_one = float(m1["loss"])
+    rel = abs(run["losses"][0] - loss_one) / abs(loss_one)
+    want7 = train7["full_width"]["loss"][0] if train7 else None
+    rel7 = None if want7 is None else abs(run["losses"][0] - want7) / \
+        abs(want7)
+    if rel > 1e-4 or (rel7 is not None and rel7 > 1e-4):
+        raise AssertionError(f"mesh step 0 loss {run['losses'][0]}: one "
+                             f"device {loss_one}, phase 7 (b) {want7}")
+    step_ms = [s * 1e3 for s in run["seconds"]]
+    median_ms = float(np.median(step_ms[1:]))
+    rec = {"steps": MESH_FULL_STEPS, "batch": B, "seq": S,
+           "remat": par.remat, "loss": run["losses"],
+           "step0_loss_one_device": loss_one, "step0_rel_err": rel,
+           "step0_loss_phase7": want7, "step0_rel_err_phase7": rel7,
+           "step_ms": step_ms, "step_ms_median": median_ms,
+           "tok_per_s": B * S / (median_ms / 1e3),
+           "max_memory_allocated": peak,
+           "phase7": None if not train7 else {
+               k: train7[k] for k in ("step_ms_median", "tok_per_s",
+                                      "max_memory_allocated")},
+           "seconds": time.perf_counter() - t0}
+    log(f"[mesh] (b) llama3.2-1b on the 1x1 mesh, batch {B} x {S}, remat "
+        f"{par.remat}: step 0 loss {run['losses'][0]} (one device "
+        f"{loss_one}, phase 7 (b) {want7}); {median_ms:.1f} ms a step, "
+        f"{rec['tok_per_s']:.1f} tok/s, peak {(peak or 0) / 1e9:.2f} GB"
+        + ("" if not train7 else
+           f" (phase 7 (b): {train7['step_ms_median']:.1f} ms, "
+           f"{train7['tok_per_s']:.1f} tok/s, peak "
+           f"{train7['max_memory_allocated'] / 1e9:.2f} GB)"))
+
+    # (c) a shardings= save and restore, bit for bit
+    t0 = time.perf_counter()
+    tree = {"params": run["params"], "count": run["opt"]["count"]}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        manager.save(tmp, MESH_FULL_STEPS, tree)
+        back, step = manager.restore(tmp, tree, shardings=params_lib
+                                     .placements_of(tree), device=device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want, got = dict(params_lib.tree_leaves(tree)), \
+        dict(params_lib.tree_leaves(back))
+    for path, w in want.items():
+        g = got[path]
+        if str(getattr(g, "placements", None)) != \
+                str(getattr(w, "placements", None)) or \
+                not torch.equal(_whole(g), _whole(w)):
+            raise AssertionError(f"restored {path} differs")
+    del back, got
+    nbytes = sum(_whole(w).numel() * _whole(w).element_size()
+                 for w in want.values())
+    rec["checkpoint"] = {"leaves": len(want), "bytes": nbytes,
+                         "step": step,
+                         "seconds": time.perf_counter() - t0}
+    log(f"[mesh] (c) shardings= save and restore of (b)'s params and step "
+        f"count: {len(want)} leaves, {nbytes / 1e9:.2f} GB, bit for bit, "
+        f"{rec['checkpoint']['seconds']:.1f} s")
+
+    # (f) the step accountant over one more step
+    t0 = time.perf_counter()
+    shape, data, step_fn = run["shape"], run["data"], run["step"]
+    from repro_torch.launch import train
+    p, o = run["params"], run["opt"]
+    del run, tree, want
+    b = train.place_batch(data.batch_at(MESH_FULL_STEPS), cfg, shape, rules,
+                          device)
+    acct = analyze_step(step_fn, p, o, b)
+    p, o, _ = acct.pop("result")
+    counter = xla_cost_analysis(step_fn, p, o, b)["flops"]
+    n_params = zoo.param_count(cfg)
+    six_nt = 6 * n_params * B * S
+    if abs(acct["dot_flops"] - counter) > 1e-6 * counter:
+        raise AssertionError(f"analyze_step dot_flops {acct['dot_flops']} "
+                             f"against FlopCounterMode {counter}")
+    rec["accountant"] = {
+        "dot_flops": acct["dot_flops"], "flop_counter": counter,
+        "six_nt": six_nt, "over_six_nt": acct["dot_flops"] / six_nt,
+        "hbm_bytes": acct["hbm_bytes"],
+        "collective_bytes": acct["collective_bytes"]["total"],
+        "seconds": time.perf_counter() - t0}
+    log(f"[mesh] (f) analyze_step over a step: dot_flops "
+        f"{acct['dot_flops']:.6e} = FlopCounterMode {counter:.6e}; "
+        f"{rec['accountant']['over_six_nt']:.4f} x 6NT ({six_nt:.6e}); "
+        f"hbm_bytes {acct['hbm_bytes']:.6e}; collective bytes "
+        f"{acct['collective_bytes']['total']:.0f}")
+    del p, o, b
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def run_mesh_small(device, seed, mesh3, log=print) -> dict:
+    """Phase 8 (d): ``cross_pod_mean(mesh=)`` on a 1x1x1 pod mesh equal
+    bit for bit to ``mesh=None``; (e) ``pipeline_apply`` with one stage
+    against ``unpipelined_reference``."""
+    import torch
+    from repro_torch.models.pipeline import (pipeline_apply,
+                                             unpipelined_reference)
+    from repro_torch.optim.grad_compress import cross_pod_mean
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    g = {k: randn(s) for k, s in MESH_CROSS.items()}
+    e = {k: randn(s, 1e-3) for k, s in MESH_CROSS.items()}
+    one = cross_pod_mean(g, e)
+    on = cross_pod_mean(g, e, mesh=mesh3, axis_name="pod")
+    for i, name in enumerate(("mean", "error")):
+        for k in MESH_CROSS:
+            if not torch.equal(on[i][k], one[i][k]):
+                raise AssertionError(f"cross_pod_mean {name} {k} differs")
+    D, Bp = MESH_PIPE_D, MESH_PIPE_B
+    params = {"w": randn((1, D, D), D ** -0.5), "b": randn((1, D), 0.1)}
+    x = randn((Bp, D))
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    got = pipeline_apply(stage, params, x, mesh=mesh3, axis="pod",
+                         num_microbatches=4)
+    want = unpipelined_reference(stage, params, x)
+    err = float((got - want).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"pipeline_apply: {err} from the reference")
+    rec = {"cross_pod_bit_equal": True, "cross_pod_leaves": len(MESH_CROSS),
+           "pipeline_max_err": err, "pipeline_microbatches": 4}
+    log(f"[mesh] (d) cross_pod_mean on the 1x1x1 pod mesh equals mesh=None "
+        f"bit for bit ({len(MESH_CROSS)} leaves); (e) pipeline_apply, one "
+        f"stage, 4 microbatches: {err:.3e} from unpipelined_reference")
+    return rec
+
+
+def run_mesh(device, seed, card, train7=None, log=print) -> dict:
+    """Phase 8: a one-rank process group and a 1x1 ("data", "model") mesh
+    on the card, then (a)-(f) (see the module docstring). Returns the
+    ``[mesh]`` line's numbers; the group is destroyed at the end."""
+    from repro_torch.compat import init_device_mesh
+    t = [time.perf_counter()]
+    phase_s = {}
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t[0]
+        t[0] = now
+
+    before = kernel_launches()
+    with one_rank_group(device):
+        mesh = init_device_mesh(device.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        mesh3 = init_device_mesh(device.type, (1, 1, 1),
+                                 mesh_dim_names=("pod", "data", "model"))
+        reduced = run_mesh_reduced(device, seed, mesh, log)
+        lap("reduced")
+        small = run_mesh_small(device, seed, mesh3, log)
+        lap("cross_pod_pipeline")
+        full = run_mesh_full(device, seed, mesh, train7, log)
+        lap("full_width")
+    if kernel_launches() != before:
+        raise AssertionError("the mesh paths launched a kernel of the port")
+    keys = ("step_ms_median", "tok_per_s", "max_memory_allocated")
+    return dict({k: full[k] for k in keys}, full_width=full, reduced=reduced,
+                cross_pod_pipeline=small, phase_s=phase_s,
+                seconds=sum(phase_s.values()), card=card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2752,6 +3083,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-train", action="store_true",
                     help="run phase 7 alone (builds only fused_vops and "
                          "kvi_walk; no kernel or ok line)")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="run phase 8 alone (no build; no kernel or ok "
+                         "line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2795,11 +3129,21 @@ def main(argv=None) -> int:
         stamp("train")
         return train
 
+    def mesh_phase(train7=None):
+        mesh = run_mesh(device, args.seed, card, train7,
+                        log=lambda m: print(f"{m}; card: {card}"))
+        print(f"[mesh] {json.dumps(mesh)}; card: {card}")
+        stamp("mesh")
+        return mesh
+
     if args.only_lm:
         lm_phase()
         return 0
     if args.only_train:
         train_phase()
+        return 0
+    if args.only_mesh:
+        mesh_phase()
         return 0
 
     # 1. build -------------------------------------------------------------
@@ -3084,11 +3428,14 @@ def main(argv=None) -> int:
     fused["run_vops"] = {"launches": train["run_vops"]["fused_vops_launches"],
                          "lanes": VOPS_LANES,
                          "times": train["run_vops"]["times"]}
+    # 8. the mesh paths ------------------------------------------------------
+    mesh = mesh_phase(train)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "train": {
         k: v for k, v in train.items() if k not in ("reduced", "full_width",
-                                                      "resume")}}))
+                                                      "resume")},
+        "mesh": {k: v for k, v in mesh.items() if k != "reduced"}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

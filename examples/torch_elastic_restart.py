@@ -2,10 +2,11 @@
 host, plan a remesh, resume from the same checkpoint — loss continues
 from where it left off.
 
-The port runs on one device (the mesh waits for ROADMAP.md queue 1 item
-7), so the remesh is a plan that is printed; the restore and the resumed
-steps run on the same device. The card is the default; ``--device cpu``
-runs on the CPU.
+The walkthrough runs on one device: the remesh is a plan that is
+printed, and the restore and the resumed steps run on the same device.
+(On a mesh, ``CheckpointManager.restore_latest(template, shardings=)``
+places each leaf of the checkpoint as a DTensor on the new mesh.) The
+card is the default; ``--device cpu`` runs on the CPU.
 
 Run:  PYTHONPATH=src python examples/torch_elastic_restart.py
 """

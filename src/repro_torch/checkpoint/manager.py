@@ -23,8 +23,14 @@ Fault-tolerance contract:
 A bfloat16 leaf is stored as the reference stores it (numpy has no
 bfloat16 without ``ml_dtypes``, through which the reference writes it):
 its raw 2-byte words under the npy descr ``<V2``, with ``"bfloat16"`` in
-the manifest. Restore reads the manifest's dtype back. Restoring onto
-a mesh (``shardings``) waits for ROADMAP.md queue 1 item 7.
+the manifest. Restore reads the manifest's dtype back.
+
+On a mesh a tree of DTensors is saved as its full tensors (every rank
+joins the gathers; rank 0 alone writes), so the bytes on disk are those
+of a one-device save of the same state. ``restore(..., shardings=)``
+places each leaf as a DTensor with the given placements (a tree of
+them: ``params.shardings``, ``params.placements_of``), the counterpart
+of the reference's ``jax.device_put`` onto NamedShardings.
 """
 from __future__ import annotations
 
@@ -38,8 +44,11 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.compat import DTensor
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models.params import place
 
 #: the npy descr the reference's bfloat16 arrays carry (ml_dtypes')
 BF16_DESCR = "<V2"
@@ -74,6 +83,8 @@ def _to_host(v):
     host (a copy on the CPU too, so a later in-place change does not reach
     a save in flight; bfloat16 as its 2-byte words, viewed as ``V2``),
     anything else through ``np.array``."""
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         t = v.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -107,8 +118,12 @@ def save(ckpt_dir, step: int, tree, *, blocking: bool = True,
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     flat = _flatten(tree)
-    # device -> host copy happens on the caller thread (consistent snapshot)
+    # device -> host copy happens on the caller thread (consistent
+    # snapshot); a DTensor's full tensor is gathered on every rank
     host = {k: _to_host(v) for k, v in flat.items()}
+    if any(isinstance(v, DTensor) for v in flat.values()) and \
+            dist.get_rank() != 0:
+        return None                      # rank 0 writes the mesh's state
 
     def _write():
         tmp = ckpt_dir / f"step_{step:09d}.tmp"
@@ -160,15 +175,28 @@ def _to_tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _mesh_of(tree):
+    for v in _flatten(tree).values():
+        if isinstance(v, DTensor):
+            return v.device_mesh
+    return None
+
+
 def restore(ckpt_dir, template, *, step: Optional[int] = None,
-            shardings=None, verify: bool = True, device=None):
+            shardings=None, mesh=None, verify: bool = True, device=None):
     """Load into the structure of ``template`` as tensors on ``device``
     (the card unless ``"cpu"``), each in the manifest's dtype. Returns
-    ``(tree, step)``."""
+    ``(tree, step)``.
+
+    ``shardings`` (a tree of DTensor placements, ``None`` leaves for
+    plain tensors) places each leaf on ``mesh`` (by default the mesh of
+    ``template``'s DTensors): every rank reads the checkpoint and keeps
+    its own blocks."""
     if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto shardings waits for the port's DeviceMesh "
-            "(ROADMAP.md queue 1 item 7)")
+        mesh = mesh if mesh is not None else _mesh_of(template)
+        if mesh is None:
+            raise ValueError("restore(shardings=) needs a mesh: pass mesh= "
+                             "or a template of DTensors")
     dev = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
@@ -186,7 +214,10 @@ def restore(ckpt_dir, template, *, step: Optional[int] = None,
                 raise IOError(f"checksum mismatch for {k} in {d}")
     out = {k: _to_tensor(v, manifest["arrays"][k]["dtype"], dev)
            for k, v in host.items()}
-    return _unflatten(out, template), step
+    tree = _unflatten(out, template)
+    if shardings is not None:
+        tree = place(tree, shardings, mesh)
+    return tree, step
 
 
 class CheckpointManager:
@@ -211,6 +242,7 @@ class CheckpointManager:
             self._pending.join()
             self._pending = None
 
-    def restore_latest(self, template, shardings=None, device=None):
-        return restore(self.dir, template, shardings=shardings,
+    def restore_latest(self, template, shardings=None, device=None,
+                       mesh=None):
+        return restore(self.dir, template, shardings=shardings, mesh=mesh,
                        device=device)

@@ -8,8 +8,13 @@ the reference's ``repro/launch/train.py`` on one device.
 The card is the default device (no fallback); ``--device cpu`` runs the
 same step on the CPU. Fault tolerance: periodic async checkpoints in the
 reference's format, a preemption-triggered sync save, resume from
-``LATEST``. A mesh (the reference's multi-host path) waits for ROADMAP.md
-queue 1 item 7.
+``LATEST``.
+
+On a mesh (``build_trainer(mesh=)``, a ``DeviceMesh`` over NCCL or gloo
+ranks) the arch's own ``Parallelism`` holds (FSDP, sequence
+parallelism, remat), as the reference's does; ``init_state`` and
+``place_batch`` give params, moments and batches as DTensors placed by
+``params.shardings``, and the train step runs unchanged over them.
 """
 from __future__ import annotations
 
@@ -33,14 +38,21 @@ from repro_torch.runtime.fault_tolerance import PreemptionGuard
 
 def build_trainer(arch: str, *, reduced: bool, seq: int, batch: int,
                   steps: int, mesh=None, data_path=None, seed=0,
-                  lr: float = 3e-4):
+                  lr: float = 3e-4, overrides: dict = None):
+    """The reference's ``build_trainer``; ``overrides`` (as the dry run's
+    ``--override``) sets ``Parallelism`` or ``ModelConfig`` fields after
+    the one-device rule."""
     spec = get_spec(arch)
     cfg = reduced_model(spec.model) if reduced else spec.model
-    # one device: no remat, no FSDP, no sequence parallelism (a mesh is
-    # refused by make_rules)
+    # one device: no remat, no FSDP, no sequence parallelism
     par = spec.parallelism if mesh is not None else \
         spec.parallelism.replace(remat="none", fsdp=False,
                                  sequence_parallel=False)
+    for k, v in (overrides or {}).items():
+        if hasattr(par, k):
+            par = par.replace(**{k: v})
+        else:
+            cfg = cfg.replace(**{k: v})
     shape = ShapeConfig("train", "train", seq, batch)
     rules = make_rules(mesh, cfg, par)
     opt_cfg = OptimizerConfig(lr=lr, total_steps=steps,
@@ -51,6 +63,30 @@ def build_trainer(arch: str, *, reduced: bool, seq: int, batch: int,
         source="file" if data_path else "synthetic", path=data_path,
         seed=seed))
     return cfg, par, shape, rules, train_step, data, opt_cfg
+
+
+def init_state(cfg, rules, opt_cfg, seed: int = 0, device=None):
+    """``(params, opt_state)``: seeded params on ``device`` (the card
+    unless ``"cpu"``) and their AdamW state; on the rules' mesh both are
+    DTensors, each rank keeping its blocks of the same seeded tensors."""
+    template = zoo.param_template(cfg)
+    params = params_lib.initialize(template, seed, device=device)
+    if rules.mesh is not None:
+        params = params_lib.place(params, params_lib.shardings(template,
+                                                               rules),
+                                  rules.mesh)
+    return params, adamw_init(params, opt_cfg)
+
+
+def place_batch(batch: dict, cfg, shape, rules, device=None) -> dict:
+    """One step's numpy batch as tensors on ``device``; on the rules' mesh
+    DTensors placed by the batch template's logical axes."""
+    dev = resolve_device(device)
+    out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    if rules.mesh is None:
+        return out
+    return params_lib.place(out, params_lib.shardings(
+        steps_lib.batch_template(cfg, shape), rules), rules.mesh)
 
 
 def main(argv=None, *, report: dict = None) -> int:
@@ -87,9 +123,7 @@ def main(argv=None, *, report: dict = None) -> int:
     print(f"arch={args.arch} reduced={args.reduced} params={n_params:,} "
           f"seq={args.seq} batch={args.batch}")
 
-    template = zoo.param_template(cfg)
-    params = params_lib.initialize(template, args.seed, device=device)
-    opt_state = adamw_init(params, opt_cfg)
+    params, opt_state = init_state(cfg, rules, opt_cfg, args.seed, device)
     start_step = 0
 
     ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval) \
@@ -105,8 +139,8 @@ def main(argv=None, *, report: dict = None) -> int:
     with PreemptionGuard() as guard:
         for step in range(start_step, args.steps):
             t0 = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in data.batch_at(step).items()}
+            batch = place_batch(data.batch_at(step), cfg, shape, rules,
+                                device)
             params, opt_state, metrics = train_step(params, opt_state, batch)
             if report is not None:
                 steps_run.append({k: float(metrics[k]) for k in

@@ -17,6 +17,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import DTensor
+from repro_torch.models.sharding import (grad_whole_unless_divides,
+                                         whole_unless_divides)
+
 # finite, never -inf: exp(-inf - -inf) is NaN on a fully masked block
 NEG_INF = -1e30
 
@@ -105,6 +109,7 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
         KV, G = H, 1
+    q = whole_unless_divides(q, 2, KV)
     q_block = min(q_block, Sq)
     kv_block = min(kv_block, Skv)
     if Sq % q_block or Skv % kv_block:
@@ -123,7 +128,9 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         nk_eff = nk
 
     kf, vf = k.float(), v.float()
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
+    # the query blocks' outputs, concatenated along the sequence at the
+    # end (on a mesh a DTensor block cannot be copied into a plain tensor)
+    out = []
     for qi in range(nq):
         q_tile = q[:, qi * q_block:(qi + 1) * q_block].float().reshape(
             B, q_block, KV, G, hd)
@@ -152,9 +159,11 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                        p, v_tile)
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]    # [B,KV,G,Qb,hd]
-        out[:, qi * q_block:(qi + 1) * q_block] = o.permute(
-            0, 3, 1, 2, 4).reshape(B, q_block, H, hd).to(q.dtype)
-    return out
+        out.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, hd)
+                   .to(q.dtype))
+    out = out[0] if nq == 1 else torch.cat(out, dim=1)
+    # the merge of (KV, G) into H splits the gradient back in the backward
+    return grad_whole_unless_divides(out, 2, KV)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -191,7 +200,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, _, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
     G = H // KV
-    qr = q.reshape(B, KV, G, hd).float()
+    qr = whole_unless_divides(q, 2, KV).reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qr, k_cache.float()) / math.sqrt(hd)
     valid = (cache_positions >= 0) & (cache_positions <= pos[:, None])
     if window:
@@ -212,6 +221,17 @@ def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
     B, S = k_cache.shape[:2]
     slot = (pos % window) if window else pos
     slot = torch.clamp(slot.long(), 0, S - 1)
+    if isinstance(k_cache, DTensor):
+        # on a mesh DTensor has no in-place index_put for a cache split
+        # over batch and heads (or slots): each slot chosen by a mask,
+        # elementwise on every rank's block
+        hit = torch.arange(S, device=slot.device)[None, :] == slot[:, None]
+        return (torch.where(hit[..., None, None],
+                            k_new.to(k_cache.dtype), k_cache),
+                torch.where(hit[..., None, None],
+                            v_new.to(v_cache.dtype), v_cache),
+                torch.where(hit, pos[:, None].to(cache_positions.dtype),
+                            cache_positions))
     b_ix = torch.arange(B, device=k_cache.device)
     k_cache, v_cache = k_cache.clone(), v_cache.clone()
     cache_positions = cache_positions.clone()

@@ -30,7 +30,8 @@ from repro_torch.models.layers import (apply_rope, cache_update,
                                        decode_attention, flash_attention_xla,
                                        rms_norm, swiglu)
 from repro_torch.models.params import P, count_params, torch_dtype, tree_map
-from repro_torch.models.sharding import Rules
+from repro_torch.models.sharding import (Rules, grad_whole_unless_divides,
+                                         whole_unless_divides)
 
 VOCAB_PAD = 256
 
@@ -225,19 +226,32 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def _heads_proj(x, w, dtype):
+    """x [B,S,D] @ w [D,H,hd] -> [B,S,H,hd] as one product over the
+    flattened heads, then split back: on a mesh DTensor may split the
+    product's H*hd columns over "model", and the split into (H, hd)
+    needs H to divide that (the heads made whole first when it does
+    not: GQA's KV heads fewer than the model axis; the weight's gradient,
+    split back in the backward, likewise)."""
+    D, H, hd = w.shape
+    w2 = grad_whole_unless_divides(w.to(dtype).reshape(D, H * hd), 1, H)
+    y = torch.einsum("bsd,de->bse", x, w2)
+    return whole_unless_divides(y, -1, H).unflatten(-1, (H, hd))
+
+
 def _attn_forward(lp, x, positions, cfg: ModelConfig, rules: Rules, par,
                   *, causal=True, window=0, kv_override=None):
     """Full-sequence attention (train/prefill). Returns (out, (k, v))."""
     dtype = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, lp["wq"].to(dtype))
+    q = _heads_proj(x, lp["wq"], dtype)
     if kv_override is None:
-        k = torch.einsum("bsd,dhk->bshk", x, lp["wk"].to(dtype))
-        v = torch.einsum("bsd,dhk->bshk", x, lp["wv"].to(dtype))
+        k = _heads_proj(x, lp["wk"], dtype)
+        v = _heads_proj(x, lp["wv"], dtype)
         k = apply_rope(k, positions, cfg.rope_theta)
     else:  # cross-attention: kv computed from encoder output
         enc = kv_override
-        k = torch.einsum("bsd,dhk->bshk", enc, lp["wk"].to(dtype))
-        v = torch.einsum("bsd,dhk->bshk", enc, lp["wv"].to(dtype))
+        k = _heads_proj(enc, lp["wk"], dtype)
+        v = _heads_proj(enc, lp["wv"], dtype)
     q = apply_rope(q, positions, cfg.rope_theta) if kv_override is None else q
     q = rules.constrain(q, "batch", "seq", "heads", "head_dim")
     k = rules.constrain(k, "batch", "seq", "kv_heads", "head_dim")
@@ -277,7 +291,9 @@ def _ssm_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
     xin, Bp, Cp = F.silu(xin), F.silu(Bp), F.silu(Cp)
     new_conv = torch.cat([ns_x, ns_B, ns_C], dim=-1)
 
-    xh = xin.reshape(B_, S, H, Pd)
+    # (the ssm_dim split into heads: whole first if H does not divide
+    # the model axis, as hymba's 50 heads on 16)
+    xh = whole_unless_divides(xin, -1, H).reshape(B_, S, H, Pd)
     xh = rules.constrain(xh, "batch", "seq", "ssm_heads", None)
     Bh = Bp.reshape(B_, S, G, N)
     Ch = Cp.reshape(B_, S, G, N)
@@ -292,7 +308,8 @@ def _ssm_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
             xh, dt, A, Bh, Ch, chunk=min(cfg.ssm_chunk, S),
             initial_state=ssd_state)
     y = y + xh * lp["D_skip"].float()[None, None, :, None].to(dtype)
-    y = y.reshape(B_, S, cfg.d_inner)
+    # (and the heads merged back: the gradient split the same way)
+    y = grad_whole_unless_divides(y, 2, H).reshape(B_, S, cfg.d_inner)
     y = rms_norm(y * F.silu(z.float()).to(dtype), lp["gate_norm"],
                  cfg.norm_eps)
     y = torch.einsum("bse,ed->bsd", y, lp["w_out"].to(dtype))
@@ -303,9 +320,9 @@ def _self_attn_decode(lp, h, positions, cfg, cache_in, window=0):
     """One token's self-attention against the cache. Returns (out,
     cache_out)."""
     dtype = h.dtype
-    q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(dtype))
-    k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(dtype))
-    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(dtype))
+    q = _heads_proj(h, lp["wq"], dtype)
+    k = _heads_proj(h, lp["wk"], dtype)
+    v = _heads_proj(h, lp["wv"], dtype)
     pos = positions[:, 0]                              # [B] per-slot position
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -346,13 +363,23 @@ def _prefill_cache(k, v, like: dict) -> dict:
 # decoder forward (train / prefill / decode) for non-encdec families
 # ---------------------------------------------------------------------------
 
+def _block_input(x, w, cfg, rules):
+    """A block's (or the final) normed input, its sequence whole on every
+    rank: with sequence parallelism the residual stream is split along
+    the sequence on "model", and the products take the whole sequence
+    (Megatron's all-gather before the block; XLA's partitioner places
+    the same one). Without a mesh, ``rms_norm``."""
+    return rules.constrain(rms_norm(x, w, cfg.norm_eps), "batch", "seq",
+                           None)
+
+
 def _decoder_block(lp, x, positions, cfg, rules, par, cache_in=None,
                    decode=False):
     """One block. Returns (x, cache_out, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     window = cfg.sliding_window
     cache_out = {}
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = _block_input(x, lp["ln1"], cfg, rules)
 
     if cfg.family == "ssm":
         y, (conv_s, ssd_s) = _ssm_forward(
@@ -389,7 +416,7 @@ def _decoder_block(lp, x, positions, cfg, rules, par, cache_in=None,
 
     x = x + y
     x = rules.constrain(x, "batch", "seq_sp", None)
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    h2 = _block_input(x, lp["ln2"], cfg, rules)
     if cfg.family == "moe":
         ff, aux = moe_lib.moe_ffn(
             h2, lp["moe"], num_experts=cfg.num_experts,
@@ -430,7 +457,7 @@ def decoder_forward(params, cfg: ModelConfig, rules: Rules, par: Parallelism,
             cache_in=cache_l, decode=decode)
         aux = aux + a
         outs.append(cache_out)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _block_input(x, params["final_norm"], cfg, rules)
     return x, _stack(outs), aux
 
 
@@ -447,15 +474,15 @@ def encoder_forward(params, cfg, rules, par, frames):
     block = _remat(_encoder_block, par)
     for lp in _layers(params["enc_blocks"], cfg.encoder_layers):
         x = block(lp, x, positions, cfg, rules, par)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return _block_input(x, params["enc_norm"], cfg, rules)
 
 
 def _encoder_block(lp, x, positions, cfg, rules, par):
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = _block_input(x, lp["ln1"], cfg, rules)
     att, _ = _attn_forward(lp["attn"], h, positions, cfg, rules, par,
                            causal=False)
     x = x + att
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    h2 = _block_input(x, lp["ln2"], cfg, rules)
     x = x + _ffn_forward(lp["ffn"], h2, cfg, rules)
     return rules.constrain(x, "batch", "seq_sp", None)
 
@@ -465,15 +492,15 @@ def _encdec_block(lp, x, positions, cfg, rules, par, enc_out, cache_l,
     """One decoder block with self + cross attention. Returns (x,
     cache_out)."""
     cache_out = {}
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = _block_input(x, lp["ln1"], cfg, rules)
     if decode:
         dtype = h.dtype
         att, cache_out = _self_attn_decode(lp["attn"], h, positions, cfg,
                                            cache_l)
         x = x + att
         # cross-attention against cached encoder K/V
-        hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        qx = torch.einsum("bsd,dhk->bshk", hx, lp["xattn"]["wq"].to(dtype))
+        hx = _block_input(x, lp["ln_x"], cfg, rules)
+        qx = _heads_proj(hx, lp["xattn"]["wq"], dtype)
         B_, n_enc = qx.shape[0], cache_l["xk"].shape[1]
         xpos = _positions(B_, n_enc, x.device)
         attx = decode_attention(qx, cache_l["xk"], cache_l["xv"], xpos,
@@ -487,7 +514,7 @@ def _encdec_block(lp, x, positions, cfg, rules, par, enc_out, cache_l,
         att, kv = _attn_forward(lp["attn"], h, positions, cfg, rules, par,
                                 causal=True)
         x = x + att
-        hx = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+        hx = _block_input(x, lp["ln_x"], cfg, rules)
         attx, xkv = _attn_forward(lp["xattn"], hx, positions, cfg, rules,
                                   par, causal=False, kv_override=enc_out)
         x = x + attx
@@ -495,7 +522,7 @@ def _encdec_block(lp, x, positions, cfg, rules, par, enc_out, cache_l,
             cache_out.update(_prefill_cache(*kv, cache_l))
             cache_out.update({"xk": xkv[0].to(cache_l["xk"].dtype),
                               "xv": xkv[1].to(cache_l["xv"].dtype)})
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    h2 = _block_input(x, lp["ln2"], cfg, rules)
     x = x + _ffn_forward(lp["ffn"], h2, cfg, rules)
     x = rules.constrain(x, "batch", "seq_sp", None)
     return x, cache_out
@@ -512,7 +539,7 @@ def encdec_decoder_forward(params, cfg, rules, par, x, positions, enc_out,
         x, cache_out = block(lp, x, positions, cfg, rules, par, enc_out,
                              cache_l, decode)
         outs.append(cache_out)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _block_input(x, params["final_norm"], cfg, rules)
     return x, _stack(outs), torch.zeros((), dtype=torch.float32,
                                         device=x.device)
 

@@ -12,6 +12,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import DTensor, Replicate
+from repro_torch.models.sharding import gather_dims, take_along
+
 
 def capacity(seq_len: int, num_experts: int, top_k: int, factor: float) -> int:
     c = int(np.ceil(seq_len * top_k * factor / num_experts))
@@ -29,14 +32,41 @@ def route(x: torch.Tensor, w_router: torch.Tensor, num_experts: int,
     # Switch-style load-balancing aux loss
     me = probs.mean(dim=(0, 1))                        # [E]
     flat = idx.reshape(-1)
-    ce = torch.zeros_like(me).index_add_(             # fraction routed per e
-        0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
-                            dtype=me.dtype, device=me.device))
+    if isinstance(idx, DTensor):
+        # (DTensor has no sharding strategy for index_add_ in every
+        # torch release: the fraction routed per e by a comparison)
+        hits = idx[..., None] == torch.arange(num_experts,
+                                              device=me.device)
+        ce = hits.to(me.dtype).sum(dim=(0, 1, 2)) / flat.numel()
+        # (whole on every rank, as index_add_'s is: a partial ce sends
+        # partial gradients into the router's product, whose planning
+        # then takes minutes on a 3-D mesh)
+        ce = ce.redistribute(ce.device_mesh,
+                             [Replicate()] * ce.device_mesh.ndim)
+    else:
+        ce = torch.zeros_like(me).index_add_(         # fraction routed per e
+            0, flat, torch.full(flat.shape, 1.0 / flat.numel(),
+                                dtype=me.dtype, device=me.device))
     aux = num_experts * torch.sum(me * ce)
     return weights, idx, aux
 
 
 def dispatch_indices(idx: torch.Tensor, num_experts: int, cap: int):
+    """Per-group slot assignment (see ``_dispatch_indices``). On a mesh
+    DTensor has no sharding strategy for ``scatter_reduce_``: the groups
+    are the sequences, so each rank assigns the slots of the sequences
+    it holds, with their seq and choice dims made whole first, and the
+    results keep ``idx``'s placements."""
+    if not isinstance(idx, DTensor):
+        return _dispatch_indices(idx, num_experts, cap)
+    idx = gather_dims(idx, 1, 2)
+    return tuple(DTensor.from_local(t, idx.device_mesh, idx.placements,
+                                    run_check=False)
+                 for t in _dispatch_indices(idx.to_local(), num_experts,
+                                            cap))
+
+
+def _dispatch_indices(idx: torch.Tensor, num_experts: int, cap: int):
     """Per-group slot assignment.
 
     idx: [B, S, k] expert choice per token. Returns
@@ -92,8 +122,8 @@ def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
 
     # gather tokens into [B, E, C, D] (token index = entry // k)
     tok_of_entry = (slot_token // top_k).long().reshape(B, E * cap)
-    xg = torch.gather(x, 1, tok_of_entry[..., None].expand(B, E * cap, D)
-                      ).reshape(B, E, cap, D)
+    xg = take_along(x, tok_of_entry[..., None].expand(B, E * cap, D), 1
+                    ).reshape(B, E, cap, D)
     xg = torch.where(slot_valid[..., None], xg, 0).to(dtype)
     if rules is not None:
         xg = rules.constrain(xg, "batch", "experts", "capacity", None)
@@ -103,7 +133,10 @@ def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
     h = F.silu(g) * u
     if rules is not None:
         h = rules.constrain(h, "batch", "experts", "capacity", "mlp")
-    y_slots = torch.einsum("becf,efd->becd", h, params["w_down"].to(dtype))
+    # (contiguous: on a mesh the redistributed h's local block may have
+    # strides that einsum's internal view cannot take)
+    y_slots = torch.einsum("becf,efd->becd", h.contiguous(),
+                           params["w_down"].to(dtype))
     if rules is not None:
         y_slots = rules.constrain(y_slots, "batch", "experts", "capacity",
                                   None)
@@ -111,9 +144,9 @@ def moe_ffn(x: torch.Tensor, params: dict, *, num_experts: int, top_k: int,
     # combine: y[b,s] = sum_j w[b,s,j] * y_slots[b, e_j, slot_j]
     flat_slot = (idx * cap + torch.clamp(token_slot.long(), max=cap - 1)
                  ).reshape(B, S * top_k)                # [B, S*k]
-    ys = torch.gather(y_slots.reshape(B, E * cap, D), 1,
-                      flat_slot[..., None].expand(B, S * top_k, D)
-                      ).reshape(B, S, top_k, D)
+    ys = take_along(y_slots.reshape(B, E * cap, D),
+                    flat_slot[..., None].expand(B, S * top_k, D), 1
+                    ).reshape(B, S, top_k, D)
     dropped = (token_slot >= cap)[..., None]
     ys = torch.where(dropped, 0, ys)
     y = torch.einsum("bskd,bsk->bsd", ys.float(), weights).to(dtype)

@@ -4,9 +4,13 @@
 A template is a nested dict whose leaves are ``P`` specs (shape, logical
 axes, init law). From one template we derive:
 
-  * ``abstract(template)``   -> a tree of ``device="meta"`` tensors (no
-    allocation)
+  * ``abstract(template, rules)`` -> a tree of ``device="meta"`` tensors
+    (no allocation), meta DTensors placed by the rules on a mesh
   * ``initialize(template, seed)`` -> the materialized param tree
+  * ``shardings(template, rules)`` -> a tree of DTensor placements via the
+    logical-axis Rules; ``specs`` -> their PartitionSpecs (tuples)
+  * ``place(tree, shardings, mesh)`` -> the tree's tensors as DTensors;
+    ``placements_of(tree)`` -> the placements of a tree of DTensors
   * ``from_reference(tree)`` -> the port's tree of a reference tree of
     numpy / JAX arrays, key path for key path
 
@@ -14,7 +18,6 @@ The reference folds each leaf's key from ``hash(name)``, which Python
 salts per process; the port seeds each leaf from a stable hash of its
 path (``zlib.crc32``) and the caller's seed, so one seed gives the same
 weights in every process (ROADMAP.md queue 3 records the difference).
-The shardings of a mesh wait for ROADMAP.md queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.compat import DeviceMesh, DTensor, distribute_tensor
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kvi.interop import array_from_reference
+from repro_torch.models.sharding import Rules
 
 
 @dataclass(frozen=True)
@@ -68,10 +73,61 @@ def tree_leaves(tree, path: str = ""):
         yield path, tree
 
 
-def abstract(template):
-    """A tree of ``device="meta"`` tensors: shapes and dtypes, no data."""
-    return tree_map(lambda p: torch.empty(p.shape, dtype=torch_dtype(p.dtype),
-                                          device="meta"), template)
+def abstract(template, rules: Optional[Rules] = None):
+    """A tree of ``device="meta"`` tensors: shapes and dtypes, no data;
+    meta DTensors placed by ``rules.sharding`` when the rules have a
+    ``DeviceMesh`` (an ``AbstractMesh`` has no group to place them on)."""
+    def leaf(p: P):
+        dtype = torch_dtype(p.dtype)
+        if rules is None or not isinstance(rules.mesh, DeviceMesh):
+            return torch.empty(p.shape, dtype=dtype, device="meta")
+        return meta_dtensor(p.shape, dtype, rules.mesh,
+                            rules.sharding(p.axes, p.shape))
+    return tree_map(leaf, template)
+
+
+def meta_dtensor(shape, dtype, mesh, placements) -> DTensor:
+    """A DTensor of global ``shape`` on the meta device: each rank's
+    local block (each sharded dim divided by its mesh dims' sizes)
+    allocates nothing."""
+    local = list(shape)
+    for m, pl in enumerate(placements):
+        if pl.is_shard():
+            local[pl.dim] //= mesh.mesh.shape[m]
+    return DTensor.from_local(torch.empty(local, dtype=dtype, device="meta"),
+                              mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def shardings(template, rules: Rules):
+    return tree_map(lambda p: rules.sharding(p.axes, p.shape), template)
+
+
+def specs(template, rules: Rules):
+    return tree_map(lambda p: rules.spec(p.axes, p.shape), template)
+
+
+def placements_of(tree):
+    """The placements of each DTensor of ``tree`` (``None`` for a plain
+    tensor): the ``shardings`` of a live tree, e.g. an optimizer state."""
+    return tree_map(lambda x: tuple(x.placements)
+                    if isinstance(x, DTensor) else None, tree,
+                    is_leaf=lambda x: not isinstance(x, dict))
+
+
+def place(tree, shardings_tree, mesh):
+    """Each tensor of ``tree`` as a DTensor on ``mesh`` with the
+    placements at the same path of ``shardings_tree`` (``shardings``,
+    ``placements_of``; ``None`` leaves the tensor as it is). Every rank
+    holds the same full tensors (seeded init, a restore), so each keeps
+    its own blocks and nothing moves."""
+    if isinstance(tree, dict):
+        return {k: place(v, shardings_tree[k], mesh) for k, v in tree.items()}
+    if shardings_tree is None:
+        return tree
+    return distribute_tensor(tree, mesh, shardings_tree, src_data_rank=None)
 
 
 def leaf_seed(seed: int, name: str) -> int:

@@ -14,6 +14,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.compat import (DTensor, Partial, Replicate, Shard,
+                                local_map)
+from repro_torch.models.sharding import gather_dims
+
 
 def _segsum_decay(a: torch.Tensor) -> torch.Tensor:
     """a: [..., cs] per-step log-decay (<=0).
@@ -35,6 +39,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Returns (y [B,S,H,P], final_state [B,H,P,N]). f32 internals.
     S is padded up to a chunk multiple internally (dt=0 padding is exact:
     zero contribution to outputs and decay-neutral for the state)."""
+    if isinstance(x, DTensor):
+        return _ssd_on_mesh(x, dt, A, B, C, chunk, initial_state)
     Bz, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if S % chunk:
@@ -86,6 +92,51 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     y = (y_intra + y_inter).reshape(Bz, S, H, P)
     return y.to(x.dtype), h
+
+
+def _ssd_on_mesh(x, dt, A, B, C, chunk, initial_state):
+    """``ssd_chunked`` of DTensors, each rank scanning its own block: the
+    scan mixes no two sequences and no two heads, so with the sequence
+    and the head width whole (and the heads too when the groups are
+    several), a rank's batch rows and heads, and its rows of the groups'
+    B and C, give its block of y and of the final state. No collective,
+    and none of DTensor's planning of the scan's 5-D products. In the
+    backward each rank's gradients of A (over its batch rows) and of B, C
+    (over its heads) are partial sums."""
+    x = gather_dims(x, 1, 3) if B.shape[2] == 1 else gather_dims(x, 1, 2, 3)
+    # per mesh dim: the dim of x it splits (0 batch, 2 heads) or None
+    split = [p.dim if p.is_shard() else None for p in x.placements]
+
+    def placed(batch_dim, head_dim, grad=False):
+        out = []
+        for d in split:
+            if d == 0 and batch_dim is not None:
+                out.append(Shard(batch_dim))
+            elif d == 2 and head_dim is not None:
+                out.append(Shard(head_dim))
+            else:
+                out.append(Partial() if grad and d is not None
+                           else Replicate())
+        return tuple(out)
+
+    xs, heads, rows, state = (placed(0, 2), placed(None, 0), placed(0, None),
+                              placed(0, 1))
+    init = None if initial_state is None else state
+    if initial_state is not None and not isinstance(initial_state, DTensor):
+        # a plain state (a prefill's zeros): the same on every rank
+        initial_state = DTensor.from_local(
+            initial_state, x.device_mesh,
+            [Replicate()] * x.device_mesh.ndim, run_check=False)
+    scan = local_map(
+        lambda x, dt, A, B, C, s: ssd_chunked(x, dt, A, B, C, chunk=chunk,
+                                              initial_state=s),
+        out_placements=(xs, state),
+        in_placements=(xs, xs, heads, rows, rows, init),
+        in_grad_placements=(xs, xs, placed(None, 0, grad=True),
+                            placed(0, None, grad=True),
+                            placed(0, None, grad=True), init),
+        device_mesh=x.device_mesh, redistribute_inputs=True)
+    return scan(x, dt, A, B, C, initial_state)
 
 
 def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,

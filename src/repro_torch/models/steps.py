@@ -4,21 +4,24 @@ the port of the reference's ``repro/models/steps.py``.
 Everything here is shape-polymorphic over (arch, shape) cells; shardings
 come from the logical-axis Rules, which on one device constrain nothing.
 The steps run eagerly on the device of the params they are given: prefill
-and decode under ``torch.inference_mode()``, the train step under
-autograd (gradients through the plain layers, then the reference's AdamW
-from ``repro_torch.optim``).
+and decode under ``torch.inference_mode()`` (``no_grad`` on a mesh), the
+train step under autograd (gradients through the plain layers, then the
+reference's AdamW from ``repro_torch.optim``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.compat import implicit_replication
 from repro_torch.configs.base import ModelConfig, Parallelism, ShapeConfig
+from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.params import (P, _unflatten, torch_dtype,
                                        tree_leaves, tree_map)
-from repro_torch.models.sharding import Rules
+from repro_torch.models.sharding import Rules, take_along
 from repro_torch.optim.optimizer import OptimizerConfig, adamw_update
 
 LABEL_IGNORE = -100
@@ -149,7 +152,7 @@ def softmax_xent(logits, labels, vocab_size: int):
     mask = (labels != LABEL_IGNORE) & (labels >= 0) & (labels < vocab_size)
     safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    picked = take_along(logits, safe[..., None], -1)[..., 0]
     nll = (lse - picked) * mask
     denom = torch.clamp(mask.sum(), min=1)
     z_loss = torch.sum(torch.square(lse) * mask) / denom
@@ -238,6 +241,22 @@ def _add(a, b):
 # step factories
 # ---------------------------------------------------------------------------
 
+def _wrap_step(step, rules: Rules, *, serving: bool = False):
+    """``step`` as it runs: a serving step under ``inference_mode`` (on a
+    mesh ``no_grad``: DTensor cannot make inference tensors); on a
+    ``DeviceMesh`` the plain tensors that a step makes itself
+    (positions, masks, the zeros of an online softmax's state: the same
+    values on every rank) enter DTensor ops as replicated."""
+    if rules.mesh is None or isinstance(rules.mesh, AbstractMesh):
+        return torch.inference_mode()(step) if serving else step
+
+    @functools.wraps(step)
+    def run(*args):
+        with implicit_replication(), torch.set_grad_enabled(not serving):
+            return step(*args)
+    return run
+
+
 def make_train_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
                     opt_cfg: OptimizerConfig):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -285,7 +304,7 @@ def make_train_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
         metrics = dict(metrics, total_loss=loss, **opt_metrics)
         return params, opt_state, metrics
 
-    return train_step
+    return _wrap_step(train_step, rules)
 
 
 def _zeros(template, device):
@@ -298,7 +317,6 @@ def make_prefill_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
     # leave generation headroom so decode never overwrites live slots
     cache_t = cache_template(cfg, shape, extra_slots=DECODE_HEADROOM)
 
-    @torch.inference_mode()
     def prefill_step(params, batch):
         cache0 = _zeros(cache_t["layers"], params["embed"].device)
         if cfg.family == "audio":
@@ -323,12 +341,11 @@ def make_prefill_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
                                    device=hid.device)}
         return logits, cache
 
-    return prefill_step
+    return _wrap_step(prefill_step, rules, serving=True)
 
 
 def make_decode_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
                      shape: ShapeConfig):
-    @torch.inference_mode()
     def decode_step(params, cache, batch):
         tokens = batch["tokens"]                       # [B, 1]
         x = zoo.embed_tokens(params, cfg, tokens)
@@ -344,7 +361,7 @@ def make_decode_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
         new_cache = {"layers": layer_cache, "pos": cache["pos"] + 1}
         return logits, new_cache
 
-    return decode_step
+    return _wrap_step(decode_step, rules, serving=True)
 
 
 def make_step(cfg, rules, par, shape,

@@ -6,13 +6,15 @@ classic trick is to all-reduce 8-bit gradients with an error-feedback
 buffer so the quantization error is re-injected next step (convergence
 neutral to first order).
 
-The codec (``quantize_block``, ``dequantize_block``, ``compress_residual``)
-and the one-device reduction are here; the reduction over a mesh's
-``pod`` axis waits for the port's mesh (ROADMAP.md queue 1 item 7).
+The reduction runs over the process group of a mesh's ``pod`` axis with
+the wire format really int8 (summed as int32): each rank compresses its
+own residual, the codes are summed and the scales max-reduced across the
+pods, as the reference's ``shard_map`` + ``psum`` do.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def quantize_block(x: torch.Tensor, *, axis: int = -1):
@@ -38,13 +40,16 @@ def cross_pod_mean(grads, errors, mesh=None, axis_name: str = "pod"):
     """Mean of a gradient tree across the pod axis with an int8 wire
     format and error feedback: ``(mean, new_errors)``, trees of float32.
 
-    On one device (``mesh=None``) the pod axis holds one member: the mean
-    is the one gradient as the wire carries it (its int8 codes times
-    their scales), the error the rest. A mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "cross_pod_mean over a mesh waits for the port's DeviceMesh "
-            "(ROADMAP.md queue 1 item 7)")
+    ``grads`` / ``errors``: this rank's trees of local float32 tensors
+    (its pod's gradient). Each rank quantizes its own residual; the int8
+    codes are summed as int32 over the group of ``mesh``'s
+    ``axis_name``, the scales max-reduced, the sum divided by the group's
+    size, and each rank keeps its own new error. Without a mesh the pod
+    axis holds one member: the mean is the one gradient as the wire
+    carries it (its int8 codes times their scales), the error the rest.
+    """
+    group = None if mesh is None else mesh.get_group(axis_name)
+    n = 1 if group is None else dist.get_world_size(group)
 
     def leaf(g, e):
         if isinstance(g, dict):
@@ -52,6 +57,12 @@ def cross_pod_mean(grads, errors, mesh=None, axis_name: str = "pod"):
             return ({k: p[0] for k, p in pairs.items()},
                     {k: p[1] for k, p in pairs.items()})
         q, s, new_e = compress_residual(g, e)
-        return dequantize_block(q, s), new_e
+        # int8 payload summed across pods (wire bytes = 1/4 of f32)
+        q_sum = q.to(torch.int32)
+        s_max = s.clone()
+        if group is not None:
+            dist.all_reduce(q_sum, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+        return q_sum.float() * s_max / n, new_e
 
     return leaf(grads, errors)

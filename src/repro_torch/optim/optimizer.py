@@ -19,6 +19,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.compat import DTensor, Replicate, distribute_tensor
+
 
 @dataclass(frozen=True)
 class OptimizerConfig:
@@ -84,13 +86,25 @@ def _is_moment(x) -> bool:
 
 
 def _moment_zeros(leaf: torch.Tensor, dtype: str):
+    """A moment of ``leaf``: placed like it when it is a DTensor (an int8
+    moment's scales like it with the last dim whole, as the reference's
+    ``launch/compile.py`` shards them)."""
     if dtype == "int8":
-        return {"q": torch.zeros(leaf.shape, dtype=torch.int8,
-                                 device=leaf.device),
-                "s": torch.ones(_q_scale_shape(leaf.shape),
-                                dtype=torch.float32, device=leaf.device)}
-    return torch.zeros(leaf.shape, dtype=_dtype(dtype),
+        s = torch.ones(_q_scale_shape(leaf.shape), dtype=torch.float32,
                        device=leaf.device)
+        if isinstance(leaf, DTensor):
+            s = distribute_tensor(s, leaf.device_mesh,
+                                  scale_placements(leaf.placements, s.dim()),
+                                  src_data_rank=None)
+        return {"q": torch.zeros_like(leaf, dtype=torch.int8), "s": s}
+    return torch.zeros_like(leaf, dtype=_dtype(dtype))
+
+
+def scale_placements(placements, ndim: int) -> tuple:
+    """The placements of an int8 moment's scales [..., 1] from its
+    parameter's: the last dim replicated."""
+    return tuple(Replicate() if p.is_shard() and p.dim == ndim - 1 else p
+                 for p in placements)
 
 
 def _moment_read(m, dtype: str) -> torch.Tensor:
@@ -166,12 +180,26 @@ def adamw_update(grads, opt_state, params, cfg: OptimizerConfig):
         step = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
         decay = cfg.weight_decay * p.float() if p.dim() >= 2 else 0.0
         new_p = (p.float() - lr * (step + decay)).to(p.dtype)
-        return new_p, _moment_write(m_f, dt), _moment_write(v_f, dt)
+        return (_placed_like(new_p, p), _placed_like(_moment_write(m_f, dt), m),
+                _placed_like(_moment_write(v_f, dt), v))
 
     out = _map(upd, params, grads, opt_state["m"], opt_state["v"])
     new_state = {"count": count, "m": _pick(out, 1), "v": _pick(out, 2)}
     metrics = {"grad_norm": gnorm, "lr": lr}
     return _pick(out, 0), new_state, metrics
+
+
+def _placed_like(new, old):
+    """``new`` (a leaf or an int8 moment) with ``old``'s placements: on a
+    mesh the state keeps its sharding from step to step (DTensor places
+    an update by what its inputs cost to move, and a gradient may arrive
+    placed otherwise)."""
+    if isinstance(new, dict):
+        return {k: _placed_like(new[k], old[k]) for k in new}
+    if isinstance(old, DTensor) and tuple(new.placements) != \
+            tuple(old.placements):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
 
 
 def _pick(tree, i: int):

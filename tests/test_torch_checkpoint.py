@@ -150,7 +150,10 @@ def test_interval_gating(tmp_path, rng):
 def test_restore_refuses_shardings_and_defaults_to_the_card(tmp_path, rng):
     t = tree_of(rng)
     save(tmp_path, 1, t)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    # shardings= places leaves on a mesh: none given, and no DTensor in
+    # the template to take one from (tests/test_torch_mesh_train.py
+    # restores onto a mesh)
+    with pytest.raises(ValueError, match="needs a mesh"):
         restore(tmp_path, t, shardings={"params": None}, device="cpu")
     with pytest.raises(FileNotFoundError):
         restore(Path(tmp_path) / "empty", t, device="cpu")

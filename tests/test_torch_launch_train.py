@@ -97,7 +97,9 @@ def test_build_trainer_keeps_the_one_device_rule():
         ("none", False, False)
     assert (opt_cfg.total_steps, opt_cfg.warmup_steps) == (40, 10)
     assert shape.kind == "train" and step.__name__ == "train_step"
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    # a mesh takes the arch's own Parallelism (tests/test_torch_mesh_train.py
+    # runs it); anything else is refused
+    with pytest.raises(TypeError, match="a mesh is a DeviceMesh"):
         train.build_trainer("llama3.2-1b", reduced=True, seq=32, batch=2,
                             steps=4, mesh=object())
 

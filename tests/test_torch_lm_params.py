@@ -396,8 +396,11 @@ def test_rules_spec_every_leaf_as_the_reference(arch, pure_dp):
 
 
 def test_a_mesh_is_refused():
+    """Only a mesh is taken as one: a DeviceMesh or an AbstractMesh (the
+    mesh paths are held in tests/test_torch_sharding_rules.py and
+    tests/test_torch_mesh_train.py)."""
     cfg = tcfg.get_spec("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(TypeError, match="a mesh is a DeviceMesh"):
         tmake_rules(object(), cfg.model, cfg.parallelism)
 
 

@@ -35,7 +35,7 @@ def test_models_package_holds_layers_and_ssm_only():
                         "model_zoo", "steps", "pipeline")
             if hasattr(tmodels, m)} == {"layers", "ssm", "sharding",
                                         "params", "moe", "model_zoo",
-                                        "steps"}
+                                        "steps", "pipeline"}
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])

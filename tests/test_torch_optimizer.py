@@ -290,7 +290,7 @@ def test_compress_residual_equals_the_reference():
                                    atol=ATOL)
 
 
-def test_cross_pod_mean_on_one_device_is_the_wire_value():
+def test_cross_pod_mean_on_one_device_is_the_wire_value(tmp_path):
     """One pod: the mean is the gradient as the int8 wire carries it (the
     reference's q_sum * s_max / n with n = 1), the error the rest."""
     rng = np.random.default_rng(4)
@@ -304,5 +304,17 @@ def test_cross_pod_mean_on_one_device_is_the_wire_value():
         q, s = tgc.quantize_block(x)
         assert torch.equal(got, tgc.dequantize_block(q, s))
         assert torch.equal(new_e, x - got)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tgc.cross_pod_mean(g, e, mesh=object())
+    # on a one-pod mesh (a one-rank gloo group) the same, bit for bit
+    # (more pods: tests/test_torch_mesh_train.py)
+    import torch.distributed as dist
+    from repro_torch.compat import init_device_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        m_mean, m_err = tgc.cross_pod_mean(g, e, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    for a, b in ((m_mean["a"], mean["a"]), (m_err["b"]["c"], err["b"]["c"])):
+        assert torch.equal(a, b)
