@@ -183,8 +183,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    at full width and depth (llama3.2-1b, batch 4 x 1024, 8 steps, bf16
    activations over f32 masters): every loss and grad norm finite, the
    params moved, step 0's loss within 5e-2 of float32 activations'; the
-   median step ms, tok/s, the device ms a step (profiler), idle share,
-   peak memory, 6·N·T over 989 TFLOP/s; (c) ``launch.train`` at
+   median step ms, tok/s, the device ms a step (profiler) and peak
+   memory; (c) ``launch.train`` at
    llama100m's full config, 6 steps with a checkpoint every 3 against 3
    steps then ``--resume`` for 3 more: params and optimizer state bit for
    bit; (d) the deprecated ``run_vops`` at 1 M int32 lanes, one
@@ -2350,8 +2350,6 @@ TRAIN_FULL = ["--arch", "llama3.2-1b", "--batch", "4", "--seq", "1024",
 #: phase 7 (c): resume at llama100m's full config
 TRAIN_RESUME = ["--arch", "llama100m", "--batch", "4", "--seq", "1024",
                 "--ckpt-interval", "3", "--log-every", "3"]
-#: the card's dense bf16 peak (PERF.md §3), for the recorded MFU
-BF16_PEAK = 989e12
 #: phase 7 (d): run_vops at 1 M int32 lanes, these slot programs
 VOPS_LANES = 1 << 20
 VOPS_PROGRAMS = ([("kvmul", 2, 0, 1, 0), ("ksrav", 2, 2, None, 9),
@@ -2520,9 +2518,8 @@ def run_train_full(device, seed, log=print) -> dict:
     full width and depth (``TRAIN_FULL``): every loss and grad norm
     finite, the params moved, step 0's loss within 5e-2 (relative) of
     the same step with float32 activations; the median step ms, tok/s,
-    the device ms a step (profiler, two more steps), idle share, peak
-    memory, the MFU and the ten device events that take most of a step
-    (recorded)."""
+    the device ms a step (profiler, two more steps), peak memory and the
+    ten device events that take most of a step (recorded)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.micro import device_us
@@ -2594,10 +2591,7 @@ def run_train_full(device, seed, log=print) -> dict:
     rec = {"step_ms": step_ms, "step_ms_median": median_ms,
            "tok_per_s": B * S / (median_ms / 1e3),
            "device_ms_per_step": device_ms,
-           "idle_share": None if device_ms is None else
-           1 - device_ms / median_ms,
            "max_memory_allocated": peak,
-           "mfu_6nt": 6 * n_params * B * S / (median_ms / 1e3) / BF16_PEAK,
            "params": n_params, "batch": B, "seq": S,
            "loss": [s["loss"] for s in steps],
            "grad_norm": [s["grad_norm"] for s in steps],
@@ -2758,7 +2752,7 @@ def run_train(device, seed, card, log=print) -> dict:
     vops = run_train_vops(device, seed, log)
     lap("run_vops")
     keys = ("step_ms_median", "tok_per_s", "device_ms_per_step",
-            "idle_share", "max_memory_allocated", "mfu_6nt")
+            "max_memory_allocated")
     return dict({k: full[k] for k in keys}, full_width=full, reduced=reduced,
                 resume=resume, run_vops=vops, phase_s=phase_s, card=card)
 

@@ -14,10 +14,15 @@ Two clock domains coexist, as separate tracks:
     and request flows land at exact simulated times, byte-reproducible
     under a fixed seed.
   * **wall**   — real seconds since tracer construction, for the layers
-    with no virtual clock (the torch backend's runs on the card).
-    Wall tracks are volatile by nature; :func:`canonical_trace` drops
-    them (and scrubs wall argument fields) so determinism gates can
-    byte-compare what remains.
+    with no virtual clock (the torch backend's runs on the card, the LM
+    train step's spans). The tracer reads the epoch clock beside its
+    ``time.perf_counter`` base and exports it as ``otherData``'s
+    ``wall_epoch_ns``: wall event ``ts`` (µs) sits at ``wall_epoch_ns +
+    1000 * ts`` on the epoch clock, the clock ``torch.profiler`` stamps
+    its host and device events with, so a wall span can be placed
+    against a profiler trace. Wall tracks are volatile by nature;
+    :func:`canonical_trace` drops them and that base (and scrubs wall
+    argument fields) so determinism gates can byte-compare what remains.
 
 Event kinds map to Chrome phases: :meth:`Tracer.span` -> complete
 (``X``), :meth:`Tracer.instant` -> ``i``, :meth:`Tracer.counter` ->
@@ -64,6 +69,9 @@ class Tracer:
         self._pids: Dict[str, int] = {}
         self._tids: Dict[Track, int] = {}
         self._wall0 = time.perf_counter()
+        #: the epoch clock (ns) at ``_wall0``: the wall domain's base on
+        #: the profiler's clock
+        self.wall_epoch_ns = time.time_ns()
 
     # -- track bookkeeping ---------------------------------------------
     def _ids(self, track: Track) -> Tuple[int, int]:
@@ -79,6 +87,10 @@ class Tracer:
     def wall_us(self) -> float:
         """Microseconds since tracer construction (the wall domain)."""
         return (time.perf_counter() - self._wall0) * 1e6
+
+    def wall_us_at(self, perf_s: float) -> float:
+        """A ``time.perf_counter()`` reading in the wall domain (µs)."""
+        return (perf_s - self._wall0) * 1e6
 
     # -- emitters ------------------------------------------------------
     def _emit(self, ph: str, track: Track, name: str, ts, cat: str,
@@ -153,7 +165,8 @@ class Tracer:
             self.events,
             key=lambda ev: (ev["pid"], ev["tid"], ev["ts"],
                             order[id(ev)])))
-        return {"displayTimeUnit": "ms", "traceEvents": events}
+        return {"displayTimeUnit": "ms", "traceEvents": events,
+                "otherData": {"wall_epoch_ns": self.wall_epoch_ns}}
 
     def save(self, path: str) -> None:
         with open(path, "w") as f:
@@ -179,14 +192,19 @@ NULL_TRACER = NullTracer()
 
 def canonical_trace(trace: Dict[str, object]) -> Dict[str, object]:
     """The deterministic view of an exported trace: wall-domain events
-    dropped (their timestamps are real time), volatile argument fields
-    scrubbed everywhere else. Two runs with the same seed and
-    configuration produce byte-identical canonical traces — what the
-    determinism tests compare."""
+    and the wall domain's epoch base dropped (both are real time),
+    volatile argument fields scrubbed everywhere else. Two runs with the
+    same seed and configuration produce byte-identical canonical traces
+    — what the determinism tests compare."""
     events = [scrub(ev, TRACE_VOLATILE)
               for ev in trace.get("traceEvents", [])
               if ev.get("clock") != CLOCK_WALL]
-    out = {k: v for k, v in trace.items() if k != "traceEvents"}
+    out = {k: v for k, v in trace.items()
+           if k not in ("traceEvents", "otherData")}
+    other = {k: v for k, v in trace.get("otherData", {}).items()
+             if k != "wall_epoch_ns"}
+    if other:
+        out["otherData"] = other
     out["traceEvents"] = events
     return out
 

@@ -6,7 +6,10 @@ the reference's ``repro/launch/train.py`` on one device.
       --device cpu
 
 The card is the default device (no fallback); ``--device cpu`` runs the
-same step on the CPU. Fault tolerance: periodic async checkpoints in the
+same step on the CPU. ``--trace-out`` / ``--metrics-out`` trace every
+step (``repro_torch.kvi.obs.spans``: the train step's spans on a host
+and a device lane, stamped on the profiler's clock) and save the Chrome
+trace and the metrics snapshot. Fault tolerance: periodic async checkpoints in the
 reference's format, a preemption-triggered sync save, resume from
 ``LATEST``.
 
@@ -19,6 +22,8 @@ parallelism, remat), as the reference's does; ``init_state`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
+import sys
 import time
 
 import torch
@@ -28,6 +33,7 @@ from repro_torch.configs import get_spec, reduced_model
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import DataConfig, DataPipeline
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kvi.obs import Obs, spans
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models import params as params_lib
 from repro_torch.models import steps as steps_lib
@@ -111,6 +117,12 @@ def main(argv=None, *, report: dict = None) -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace of the train steps' spans "
+                         "(host and device lanes)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics-registry snapshot JSON (the "
+                         "spans' device and host ms by name)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -136,7 +148,9 @@ def main(argv=None, *, report: dict = None) -> int:
 
     losses, steps_run = [], []
     t_last = time.time()
-    with PreemptionGuard() as guard:
+    obs = Obs.on() if args.trace_out or args.metrics_out else None
+    with PreemptionGuard() as guard, \
+            (spans.activate(obs) if obs else contextlib.nullcontext()):
         for step in range(start_step, args.steps):
             t0 = time.perf_counter()
             batch = place_batch(data.batch_at(step), cfg, shape, rules,
@@ -156,6 +170,8 @@ def main(argv=None, *, report: dict = None) -> int:
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)",
                       flush=True)
+                if obs is not None:     # the host has waited here anyway
+                    spans.flush()
             if ckpt:
                 ckpt.maybe_save(step + 1, {"params": params, "opt": opt_state},
                                 force=guard.requested)
@@ -164,6 +180,11 @@ def main(argv=None, *, report: dict = None) -> int:
                 break
     if ckpt:
         ckpt.wait()
+    if obs is not None:
+        obs.save(trace_path=args.trace_out, metrics_path=args.metrics_out)
+        for path in (args.trace_out, args.metrics_out):
+            if path:
+                print(f"telemetry -> {path}", file=sys.stderr)
     if len(losses) >= 2:
         print(f"loss {losses[0][1]:.4f} -> {losses[-1][1]:.4f} "
               f"({'improved' if losses[-1][1] < losses[0][1] else 'NOT improved'})")

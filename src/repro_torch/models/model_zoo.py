@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, Parallelism
+from repro_torch.kvi.obs import spans
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, cache_update,
@@ -304,9 +305,10 @@ def _ssm_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
             ssd_state, xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0])
         y = y[:, None]
     else:
-        y, new_state = ssm_lib.ssd_chunked(
-            xh, dt, A, Bh, Ch, chunk=min(cfg.ssm_chunk, S),
-            initial_state=ssd_state)
+        # the "ssd" span, its backward bracketed (a traced train step)
+        y, new_state = spans.bracketed(
+            "ssd", ssm_lib.ssd_chunked, xh, dt, A, Bh, Ch,
+            chunk=min(cfg.ssm_chunk, S), initial_state=ssd_state)
     y = y + xh * lp["D_skip"].float()[None, None, :, None].to(dtype)
     # (and the heads merged back: the gradient split the same way)
     y = grad_whole_unless_divides(y, 2, H).reshape(B_, S, cfg.d_inner)
@@ -374,8 +376,17 @@ def _block_input(x, w, cfg, rules):
 
 
 def _decoder_block(lp, x, positions, cfg, rules, par, cache_in=None,
-                   decode=False):
-    """One block. Returns (x, cache_out, aux)."""
+                   decode=False, layer=None):
+    """One block. Returns (x, cache_out, aux). In a traced train step the
+    body is the span "block" (arg ``layer``; phase ``forward``, or
+    ``recompute`` when remat runs it again in the backward)."""
+    with spans.phased("block", layer=layer):
+        return _decoder_block_body(lp, x, positions, cfg, rules, par,
+                                   cache_in, decode)
+
+
+def _decoder_block_body(lp, x, positions, cfg, rules, par, cache_in,
+                        decode):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     window = cfg.sliding_window
     cache_out = {}
@@ -398,8 +409,10 @@ def _decoder_block(lp, x, positions, cfg, rules, par, cache_in=None,
                                                 cfg, cache_in, window)
         kv = None
     else:
-        attn_out, kv = _attn_forward(lp["attn"], h, positions, cfg, rules,
-                                     par, causal=True, window=window)
+        with spans.span("attention"):
+            attn_out, kv = _attn_forward(lp["attn"], h, positions, cfg,
+                                         rules, par, causal=True,
+                                         window=window)
 
     if cfg.family == "hybrid":
         y_ssm, (conv_s, ssd_s) = _ssm_forward(
@@ -454,7 +467,7 @@ def decoder_forward(params, cfg: ModelConfig, rules: Rules, par: Parallelism,
         cache_l = None if cache is None else _layer(cache["layers"], l)
         x, cache_out, a = block(
             lp, x, positions, cfg, rules, par,
-            cache_in=cache_l, decode=decode)
+            cache_in=cache_l, decode=decode, layer=l)
         aux = aux + a
         outs.append(cache_out)
     x = _block_input(x, params["final_norm"], cfg, rules)

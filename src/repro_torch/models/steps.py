@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.compat import implicit_replication
+from repro_torch.kvi.obs import spans
 from repro_torch.configs.base import ModelConfig, Parallelism, ShapeConfig
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model_zoo as zoo
@@ -217,9 +218,11 @@ def value_and_grad(loss_fn, params, batch):
               for name in names}
     diff = _unflatten(params, {**flat, **leaves})
     with torch.enable_grad():
-        loss, metrics = loss_fn(diff, batch)
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names],
-                                    allow_unused=True)
+        with spans.span("forward"):
+            loss, metrics = loss_fn(diff, batch)
+        with spans.span("backward"):
+            grads = torch.autograd.grad(loss, [leaves[n] for n in names],
+                                        allow_unused=True)
     g = {n: torch.zeros_like(leaves[n]) if x is None else x
          for n, x in zip(names, grads)}
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
@@ -262,7 +265,10 @@ def make_train_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradients through autograd (eagerly,
     outside ``inference_mode``), then ``adamw_update``. Functional: the
-    arguments are left as they are."""
+    arguments are left as they are. Traced (``kvi.obs.spans``) when a
+    profiler session or an activated bundle asks: one ``train_step``
+    span a call over ``forward`` and ``backward`` (one each a
+    micro-batch) and ``optimizer``."""
     loss_fn = make_loss_fn(cfg, rules, par)
 
     if par.mixed_precision:
@@ -275,6 +281,10 @@ def make_train_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
                                 batch)
 
     def train_step(params, opt_state, batch):
+        with spans.step(batch):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if par.grad_accum > 1:
             # the reference's lax.scan over micro-batches as a loop: loss
             # and grads summed in float32, then averaged; the metrics are
@@ -299,8 +309,9 @@ def make_train_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
                              is_leaf=lambda x: not isinstance(x, dict))
         else:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
-        params, opt_state, opt_metrics = adamw_update(grads, opt_state,
-                                                      params, opt_cfg)
+        with spans.span("optimizer"):
+            params, opt_state, opt_metrics = adamw_update(grads, opt_state,
+                                                          params, opt_cfg)
         metrics = dict(metrics, total_loss=loss, **opt_metrics)
         return params, opt_state, metrics
 
