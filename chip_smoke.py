@@ -6,7 +6,7 @@
 Needs one CUDA card, ``nvcc`` and this checkout (``src/repro_torch``);
 imports nothing of JAX or of the reference package ``repro``. Phases:
 
-1. build   — compile the nine CUDA sources of ``src/repro_torch/csrc/``
+1. build   — compile the eleven CUDA sources of ``src/repro_torch/csrc/``
    for sm_90a, one ``nvcc`` per source, in parallel; print each kernel's
    registers and spills, and the conv2d kernel's rows a thread, threads,
    tiles and dynamic shared memory a block at each phase-4 workload;
@@ -143,7 +143,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    streaming rows, in turns;
 6. lm      — the LM model zoo and LM serving (``repro_torch.models``,
    ``repro_torch.serving``; plain PyTorch, as the reference's zoo calls
-   no kernel, so no kernel launches here): (a) every arch at
+   no kernel, but for the SSM layers' SSD scan, which runs the card's
+   training kernels, phase 9's): (a) every arch at
    ``reduced_model`` size in float32 and in its config's bfloat16, one
    set of seed-made weights on the CPU and the card, a prefill of 64
    tokens of a batch of 2 and 4 decode steps, logits and caches equal
@@ -167,10 +168,11 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    output. The ``[lm]`` line holds the server's tokens, seconds, tok/s
    and TTFT p50 / p99, the median decode step ms, the peak device
    memory, (b)'s seconds and the card. ``--only-lm`` runs this phase
-   alone (no build, no kernel or ok line);
+   alone (no kernel or ok line);
 7. train   — LM training (``repro_torch.optim``, the train step of
    ``repro_torch.models.steps``, ``repro_torch.launch.train``; plain
-   PyTorch under autograd, no kernel): (a) llama3.2-1b, mixtral-8x7b,
+   PyTorch under autograd, no kernel of the port but the SSD scan's for
+   the SSM layers): (a) llama3.2-1b, mixtral-8x7b,
    mamba2-1.3b (remat "block" on the card), hymba-1.5b (int8 moments),
    seamless-m4t-medium and pixtral-12b (grad_accum 2 on the card against
    the whole batch on the CPU) at ``reduced_model`` size in float32 (TF32
@@ -191,10 +193,11 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    ``fused_vops`` launch a call, bit for bit its plain version, and the
    backends of ``examples/torch_quickstart.py`` on the card. One
    ``[train]`` line per part and one JSON ``[train]`` line; ``--only-train``
-   runs this phase alone (builds only what (d) launches; no kernel or ok
-   line);
+   runs this phase alone (builds only what (d) and the SSD launch; no
+   kernel or ok line);
 8. mesh    — the mesh paths (``repro_torch.launch.mesh``, DTensor
-   placements from ``models.sharding``, ``models.pipeline``; no kernel)
+   placements from ``models.sharding``, ``models.pipeline``; no kernel
+   but the SSD scan's)
    on a one-rank NCCL group (``file://`` rendezvous in a temporary
    directory) and a 1x1 ("data", "model") ``DeviceMesh``: (a)
    ``build_trainer(mesh=)`` for llama3.2-1b, mixtral-8x7b and
@@ -211,8 +214,16 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    one more step of (b): its dot FLOPs equal to ``FlopCounterMode``'s
    on the step after, and their ratio to 6·N·T. One ``[mesh]`` line a
    part and one JSON ``[mesh]`` line; the group is destroyed at the end;
-   ``--only-mesh`` runs this phase alone (no build; no kernel or ok
-   line).
+   ``--only-mesh`` runs this phase alone (no kernel or ok line);
+9. ssd_train — the SSD scan for training (``ssd_scan.ssd_train``, which
+   ``ssd_chunked`` runs on the card): (a) y, the final state and every
+   gradient against the plain version at seven shapes (one and two
+   groups, P and N past a tile), float32 and bf16, one launch of each part a
+   check; (b) two runs bit for bit; (c) the forward and the forward and
+   backward at the benchmark cell's row (``micro.SSD_TRAIN_CELL``) beside
+   the plain layer and the bound. ``[ssd_train]`` lines and one JSON
+   ``[ssd_train]`` line; ``--only-ssd-train`` runs this phase alone (no
+   kernel or ok line).
 
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers
@@ -1684,7 +1695,7 @@ def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     launches = {k: mod.launch_count for k, mod in micro.MODULES.items()}
-    ssd_launches = dict(ss.part_launches)
+    ssd_launches = {k: ss.part_launches[k] for k in ss.PARTS}
     paths = path_counts()
     calls = {k: sum(w.kernel == k for w in workloads) for k in micro.MODULES}
     tc_calls = {k: sum(w.kernel == k and micro.tensor_core_call(w)
@@ -1729,13 +1740,14 @@ def check_ssd_kernels(rng, device, row_shape):
     err = dict.fromkeys(ss.PARTS, 0.0)
     runs = [(shape, dt) for shape in checks.ssd_part_cases()
             for dt in checks.LM_TYPES] + [(row_shape, torch.float32)]
-    before = dict(ss.part_launches)
+    before = {k: ss.part_launches[k] for k in ss.PARTS}
     for shape, dt in runs:
         for k, e in checks.check_ssd_parts(rng, device=device, dtype=dt,
                                            **shape).items():
             err[k] = max(err[k], e)
     torch.cuda.synchronize()
-    if ss.part_launches != {k: n + len(runs) for k, n in before.items()}:
+    if {k: ss.part_launches[k] for k in ss.PARTS} != {
+            k: n + len(runs) for k, n in before.items()}:
         raise AssertionError(f"SSD kernel launches {ss.part_launches}, "
                              f"want {len(runs)} more of each than {before}")
     for shape in checks.ssd_part_cases():
@@ -2291,11 +2303,130 @@ def kernel_launches() -> int:
             sum(m.launch_count for m in micro.MODULES.values()))
 
 
+def other_launches() -> int:
+    """Launches of every kernel of the port but the SSD scan's, which the
+    zoo's SSM layers run on the card (``ssd_chunked`` on CUDA tensors)."""
+    from repro_torch.kernels import ssd_scan as ss
+    return kernel_launches() - ss.launch_count
+
+
+def ssd_parts(since=None) -> dict:
+    """The SSD's launches by part (``ssd_scan.part_launches``), or those
+    since ``since`` (an earlier reading)."""
+    from repro_torch.kernels import ssd_scan as ss
+    parts = ss.TRAIN_PARTS + ss.BWD_PARTS
+    now = {k: ss.part_launches[k] for k in parts}
+    return now if since is None else {k: now[k] - since[k] for k in parts}
+
+
+def ssd_step_launches(cfg, par) -> dict:
+    """The SSD's launches a train step on the card by part: every SSM
+    or hybrid layer runs the forward's parts once, twice with its block
+    recomputed (``remat="block"``), and the backward's once."""
+    from repro_torch.kernels import ssd_scan as ss
+    L = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    fwd = L * (2 if par.remat == "block" else 1)
+    return {**dict.fromkeys(ss.TRAIN_PARTS, fwd),
+            **dict.fromkeys(ss.BWD_PARTS, L)}
+
+
+#: phase 9 (d): the benchmark cell's model (mamba2-1.3b at full width and
+#: depth, blocks recomputed) for one train step of this batch x seq
+SSD_STEP_ARCH, SSD_STEP_B, SSD_STEP_S = "mamba2-1.3b", 2, 4096
+
+
+def run_ssd_step(device, seed, log=print) -> dict:
+    """Phase 9 (d): one train step of ``SSD_STEP_ARCH`` at full width and
+    depth through ``launch.train.build_trainer`` with the blocks
+    recomputed, as the benchmark cell runs it: the SSD's launches by part
+    in that step, held to :func:`ssd_step_launches`."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import params as params_lib
+    from repro_torch.optim.optimizer import adamw_init
+    cfg, par, shape, rules, step, data, opt = train.build_trainer(
+        SSD_STEP_ARCH, reduced=False, seq=SSD_STEP_S, batch=SSD_STEP_B,
+        steps=10, overrides={"remat": "block"})
+    params = params_lib.initialize(zoo.param_template(cfg), seed,
+                                   device=device)
+    state = adamw_init(params, opt)
+    batch = train.place_batch(data.batch_at(0), cfg, shape, rules, device)
+    data.close()
+    before = ssd_parts()
+    _, _, met = step(params, state, batch)
+    torch.cuda.synchronize()
+    got, want = ssd_parts(since=before), ssd_step_launches(cfg, par)
+    loss = float(met["loss"])
+    if got != want or not np.isfinite(loss):
+        raise AssertionError(f"{SSD_STEP_ARCH} step: SSD launches {got}, "
+                             f"want {want}; loss {loss}")
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+    rec = dict(arch=SSD_STEP_ARCH, batch=SSD_STEP_B, seq=SSD_STEP_S,
+               layers=cfg.num_layers, remat=par.remat, loss=loss,
+               ssd_launches=got, ssd_launches_total=sum(got.values()))
+    log(f"[ssd_train] (d) {SSD_STEP_ARCH} {SSD_STEP_B} x {SSD_STEP_S}, "
+        f"{cfg.num_layers} layers, remat {par.remat}: one train step "
+        f"launched the SSD's parts {json.dumps(got)}, "
+        f"{rec['ssd_launches_total']} in all")
+    return rec
+
+
+def run_ssd_train(device, seed, card, log=print) -> dict:
+    """Phase 9: the SSD scan for training (``ssd_scan.ssd_train``, the
+    zoo's SSD on the card): (a) y, the final state and every gradient
+    against the plain version on the same tensors
+    (``checks.check_ssd_train``) at ``checks.ssd_train_card_cases()``
+    (the last at the benchmark cell's widths), float32 and bf16 x (B and
+    C in x's type), one launch of every part a check; (b) two runs at 2 x
+    1024 tokens of 64 heads equal bit for bit; (c) the forward and the
+    forward and backward at ``micro.SSD_TRAIN_CELL`` (the benchmark
+    cell's row) beside the plain layer and the bound
+    (``micro.time_ssd_train``); (d) the SSD's launches in one train step
+    of the cell's model (:func:`run_ssd_step`)."""
+    import torch
+    from repro_torch.kernels import checks, micro
+    from repro_torch.kernels import ssd_scan as ss
+    rng = np.random.default_rng(seed)
+    parts = ss.TRAIN_PARTS + ss.BWD_PARTS
+    cases = checks.ssd_train_card_cases()
+    err = dict.fromkeys(checks.SSD_TRAIN_OUTPUTS, 0.0)
+    for shape in cases:
+        for dt in checks.LM_TYPES:
+            before = ssd_parts()
+            got = checks.check_ssd_train(rng, device=device, dtype=dt,
+                                         bc_dtype=dt, **shape)
+            torch.cuda.synchronize()
+            if ssd_parts(since=before) != dict.fromkeys(parts, 1):
+                raise AssertionError(f"ssd_train launches at {shape}: "
+                                     f"{ss.part_launches}")
+            err = {k: max(err[k], got[k]) for k in err}
+        torch.cuda.empty_cache()
+    log(f"[ssd_train] (a) outputs and gradients equal the plain version "
+        f"at {len(cases)} shapes (the last {json.dumps(cases[-1])}), "
+        f"float32 and bf16 x, max abs err {json.dumps(err)}")
+    ops = checks.ssd_train_operands(rng, 2, 1024, 64, 64, 128, 1, device,
+                                    torch.bfloat16, torch.bfloat16)
+    first, second = (checks.ssd_train_outputs(*ops, 256) for _ in range(2))
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("ssd_train: two runs differ")
+    log("[ssd_train] (b) two runs equal bit for bit")
+    timing = micro.time_ssd_train(micro.SSD_TRAIN_CELL, rng, device)
+    for label, t in timing.items():
+        log(f"[ssd_train] (c) {label} {json.dumps(micro.SSD_TRAIN_CELL)}: "
+            f"{json.dumps(t)}")
+    step = run_ssd_step(device, seed, log)
+    return dict(max_abs_err=err, cases=len(cases), times=timing,
+                shape=micro.SSD_TRAIN_CELL, step=step, card=card)
+
+
 def run_lm(device, seed, card, log=print) -> dict:
     """Phase 6: (a) every reduced arch, the card against the CPU; (b)
     one arch of each family at full width, decode after prefill against
-    the forward; (c) LM serving at full width. No kernel of the port
-    runs here: the zoo calls the plain layers, as the reference's does.
+    the forward; (c) LM serving at full width. The zoo calls the plain
+    layers, as the reference's does, but for ``ssd_chunked``, which runs
+    the SSD's training kernels on the card (the line counts the launches).
     Returns the ``[lm]`` line's numbers."""
     import torch
     torch.cuda.reset_peak_memory_stats()
@@ -2417,13 +2548,14 @@ def _train_close(name, got, want, steps: int, lr: float,
 
 
 def _train_run(cfg, par, opt_cfg, params, data, device, routes=None,
-               force=None, flips=None):
+               force=None, flips=None, ssd_launches=None):
     """The first batch's gradients, then TRAIN_STEPS train steps, on
     ``device`` from ``params`` (CPU tensors) on ``data``'s batches:
     the gradients, per-step metrics, params and optimizer state on the
     CPU. MoE
     routes are recorded (``routes``) or forced (``force``), as phase 6
-    (a) does."""
+    (a) does; each step's launches of the SSD's parts are appended to
+    ``ssd_launches`` when it is a list."""
     import torch
     from repro_torch.models import steps
     from repro_torch.models.sharding import make_rules
@@ -2443,7 +2575,10 @@ def _train_run(cfg, par, opt_cfg, params, data, device, routes=None,
         for s in range(TRAIN_STEPS):
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in data.batch_at(s).items()}
+            before = ssd_parts()
             p, o, m = step(p, o, batch)
+            if ssd_launches is not None:
+                ssd_launches.append(ssd_parts(since=before))
             metrics.append({k: float(v) for k, v in m.items()})
     return _tree_to(grads, "cpu"), metrics, _tree_to(p, "cpu"), \
         _tree_to(o, "cpu")
@@ -2454,7 +2589,10 @@ def run_train_reduced(device, seed, log=print) -> dict:
     off), TRAIN_STEPS steps on the CPU and on the card from one set of
     seed-made weights on ``DataPipeline.batch_at`` batches: loss, grad
     norm, the first batch's gradients and every updated param within
-    1e-4 (params as ``_train_close`` says)."""
+    1e-4 (params as ``_train_close`` says); on the card, each step's
+    launches of the SSD's parts (``ssd_step_launches``: 2 L forward and L
+    backward for mamba2's recomputed blocks, L and L for hymba's, none
+    elsewhere)."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, DataPipeline
     from repro_torch.models import model_zoo as zoo
@@ -2475,9 +2613,15 @@ def run_train_reduced(device, seed, log=print) -> dict:
         routes, apart = [], []
         want_g, want_m, want_p, want_o = _train_run(
             cfg, par, opt_cfg, params, data, "cpu", routes=routes)
+        on_card = par.replace(**card_par)
+        launches = []
         got_g, got_m, got_p, got_o = _train_run(
-            cfg, par.replace(**card_par), opt_cfg, params, data, device,
-            force=routes, flips=apart)
+            cfg, on_card, opt_cfg, params, data, device, force=routes,
+            flips=apart, ssd_launches=launches)
+        want_launches = ssd_step_launches(cfg, on_card)
+        if any(n != want_launches for n in launches):
+            raise AssertionError(f"{arch}: the SSD's launches a step "
+                                 f"{launches}, want {want_launches}")
         if routes or apart:
             raise AssertionError(f"{arch}: {len(routes)} routes left, "
                                  f"{len(apart)} routed apart in float32")
@@ -2501,6 +2645,7 @@ def run_train_reduced(device, seed, log=print) -> dict:
                    card=dict(card_par, moment_dtype=moments),
                    loss=[m["loss"] for m in got_m],
                    grad_norm=[m["grad_norm"] for m in got_m],
+                   ssd_launches_per_step=launches,
                    seconds=time.perf_counter() - t0)
         out[arch] = rec
         log(f"[train] (a) {arch}: the card equals the CPU over "
@@ -2729,8 +2874,9 @@ def run_train(device, seed, card, log=print) -> dict:
     """Phase 7: (a) one reduced arch of each family, the card against the
     CPU; (b) ``launch.train`` at full width; (c) resume bit for bit; (d)
     ``run_vops`` and the quickstart's backends. (a)-(c) launch no kernel
-    of the port: the zoo calls the plain layers, as the reference's does.
-    Returns the ``[train]`` line's numbers."""
+    of the port but the SSD scan's (``ssd_chunked`` on the card): the zoo
+    calls the plain layers otherwise, as the reference's does. Returns the
+    ``[train]`` line's numbers."""
     t = [time.perf_counter()]
     phase_s = {}
 
@@ -2739,16 +2885,16 @@ def run_train(device, seed, card, log=print) -> dict:
         phase_s[name] = now - t[0]
         t[0] = now
 
-    before = kernel_launches()
+    before = other_launches()
     reduced = run_train_reduced(device, seed, log)
     lap("reduced")
     full = run_train_full(device, seed, log)
     lap("full_width")
     resume = run_train_resume(device, seed, log)
     lap("resume")
-    if kernel_launches() != before:
+    if other_launches() != before:
         raise AssertionError("the training path launched a kernel of the "
-                             "port")
+                             "port other than the SSD scan's")
     vops = run_train_vops(device, seed, log)
     lap("run_vops")
     keys = ("step_ms_median", "tok_per_s", "device_ms_per_step",
@@ -3048,7 +3194,7 @@ def run_mesh(device, seed, card, train7=None, log=print) -> dict:
         phase_s[name] = now - t[0]
         t[0] = now
 
-    before = kernel_launches()
+    before = other_launches()
     with one_rank_group(device):
         mesh = init_device_mesh(device.type, (1, 1),
                                 mesh_dim_names=("data", "model"))
@@ -3060,8 +3206,9 @@ def run_mesh(device, seed, card, train7=None, log=print) -> dict:
         lap("cross_pod_pipeline")
         full = run_mesh_full(device, seed, mesh, train7, log)
         lap("full_width")
-    if kernel_launches() != before:
-        raise AssertionError("the mesh paths launched a kernel of the port")
+    if other_launches() != before:
+        raise AssertionError("the mesh paths launched a kernel of the port "
+                             "other than the SSD scan's")
     keys = ("step_ms_median", "tok_per_s", "max_memory_allocated")
     return dict({k: full[k] for k in keys}, full_width=full, reduced=reduced,
                 cross_pod_pipeline=small, phase_s=phase_s,
@@ -3072,14 +3219,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only-lm", action="store_true",
-                    help="run phase 6 alone (no build; no kernel or ok "
-                         "line)")
+                    help="run phase 6 alone (no kernel or ok line)")
     ap.add_argument("--only-train", action="store_true",
-                    help="run phase 7 alone (builds only fused_vops and "
-                         "kvi_walk; no kernel or ok line)")
+                    help="run phase 7 alone (builds only fused_vops, "
+                         "kvi_walk and the SSD's training sources; no "
+                         "kernel or ok line)")
     ap.add_argument("--only-mesh", action="store_true",
-                    help="run phase 8 alone (no build; no kernel or ok "
-                         "line)")
+                    help="run phase 8 alone (no kernel or ok line)")
+    ap.add_argument("--only-ssd-train", action="store_true",
+                    help="run phase 9 alone (builds the SSD's training "
+                         "source; no kernel or ok line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3138,6 +3287,17 @@ def main(argv=None) -> int:
         return 0
     if args.only_mesh:
         mesh_phase()
+        return 0
+
+    def ssd_train_phase():
+        out = run_ssd_train(device, args.seed, card,
+                            log=lambda m: print(f"{m}; card: {card}"))
+        print(f"[ssd_train] {json.dumps(out)}")
+        stamp("ssd_train")
+        return out
+
+    if args.only_ssd_train:
+        ssd_train_phase()
         return 0
 
     # 1. build -------------------------------------------------------------
@@ -3424,12 +3584,15 @@ def main(argv=None) -> int:
                          "times": train["run_vops"]["times"]}
     # 8. the mesh paths ------------------------------------------------------
     mesh = mesh_phase(train)
+    # 9. the SSD scan for training --------------------------------------------
+    ssd_train = ssd_train_phase()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "train": {
         k: v for k, v in train.items() if k not in ("reduced", "full_width",
                                                       "resume")},
-        "mesh": {k: v for k, v in mesh.items() if k != "reduced"}}))
+        "mesh": {k: v for k, v in mesh.items() if k != "reduced"},
+        "ssd_train": ssd_train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

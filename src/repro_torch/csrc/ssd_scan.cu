@@ -1,5 +1,7 @@
-// The Mamba-2 SSD chunk scan as three kernels on one stream. Per (batch b,
-// head h) a state h [N, P] (float32, zero at the start) walks the sequence
+// The Mamba-2 SSD chunk scan as three kernels on one stream; this file holds
+// the third, and ssd_train.cu the first two (which the training scan runs
+// too). Per (batch b, head h) a state h [N, P] (float32, zero at the start,
+// or an initial state) walks the sequence
 // in chunks of cs steps; within chunk c, with cum the running sum of da over
 // the chunk and xdt_j = x_j dt_j,
 //   y_i   = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) xdt_j          (intra)
@@ -7,8 +9,9 @@
 //   h_in[c + 1] = exp(cum_last) h_in[c] + s_c,
 //   s_c   = sum_j (B_j exp(cum_last - cum_j))^T xdt_j                  (chunk state)
 // x [Bz, S, H, P] (float32, bf16 or float16), da and dt [Bz, S, H], B and C [Bz, S,
-// H, N] head-broadcast (float32); y in x's type, the final state [Bz, H, N,
-// P] float32. All arithmetic float32.
+// G, N] for G groups dividing the heads (float32; the op passes them
+// head-broadcast, G = H); y in x's type, the final state [Bz, H, N, P]
+// float32. All arithmetic float32.
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan.py::_ssd_kernel (a (Bz, H,
 // S/cs) grid whose innermost, sequential chunk axis carries the state in
@@ -46,6 +49,7 @@
 // scores before it (dt_j is folded into the scores). x staged through
 // registers (kernel 1; bf16 and float16 x in kernel 3) is loaded a slab
 // ahead and used only after the slab's FMAs, so no warp waits on it.
+// x's type is a template argument here and read at run time in kernel 1.
 // Shared memory does not grow with P (tiled in the grid); kernel 1's does
 // not grow with N (tiled in the grid too), kernel 3's only through that C
 // tile: 37888 and 97792 bytes at the mamba2 row, so two blocks or more
@@ -62,24 +66,14 @@
 
 #include <type_traits>
 
-#include "spm_tiles.cuh"
+#include "ssd_tiles.cuh"
 
 namespace {
 
-constexpr int kThr = 128;           // threads of kernels 1 and 3
-constexpr int kPassThr = 256;       // threads of kernel 2
-constexpr int kT = 64;              // tile edge
-constexpr int kLd = kT + 4;         // words per row of a shared tile
-constexpr int kK = 32;              // K slab
+using namespace ssd;
+
 constexpr int kStages = 3;          // kernel 3's cp.async ring
-constexpr int kPassUnroll = 8;      // chunk states kernel 2 loads at once
 
-enum Dtype { F32 = 0, BF16 = 1, F16 = 2 };
-
-__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ inline int n_pad(int N) { return ceil_div(N, kK) * kK; }
-
-size_t state_smem(int cs) { return sizeof(float) * (4 * (size_t)kK * kLd + 3 * (size_t)cs); }
 // kernel 3 holds the row tile's C whole (n_pad(N) rows) unless that passes
 // a block's shared memory; then C streams through a ring like B's
 size_t scan_smem_resident(int N, int cs) {
@@ -93,253 +87,6 @@ size_t scan_smem(int N, int cs) {
                           2 * (size_t)cs);
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
-
-// row r of the thread's 8 x 4 block
-__device__ __forceinline__ int row_of(int ty, int r) { return (r < 4 ? 0 : 32) + 4 * ty + (r & 3); }
-
-// acc[r][q] += sum_{k < kend} a[k][row_of(ty, r)] * b[k][4 tx + q] over two
-// k-major [K][kLd] tiles (kend <= K, a multiple of 8)
-template <int K>
-__device__ __forceinline__ void tile_fma(const float* a, const float* b, int ty, int tx,
-                                         float (&acc)[8][4], int kend = K) {
-#pragma unroll 8
-  for (int k = 0; k < kend; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + k * kLd + 4 * ty);
-    const float4 a1 = *reinterpret_cast<const float4*>(a + k * kLd + 32 + 4 * ty);
-    const float4 bv = *reinterpret_cast<const float4*>(b + k * kLd + 4 * tx);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bq[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bq[q], acc[r][q]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-}
-
-// dst[k][i] = src row (i0 + i), element k0 + k, for k < nk (a multiple of
-// 8) and i < kT; zero for rows at or past `rows` and elements at or past N.
-// `row_at(i)` is the offset of row i in src. Lane l of warp w copies
-// elements 8 v + l % 8 of rows 4 (w + 4 u) + l / 8 (u < 4): each copy's
-// write k * kLd + i reaches 32 banks across the warp, its reads are
-// 32-byte runs, and the four row offsets are reckoned once.
-template <typename RowAt>
-__device__ __forceinline__ void copy_transposed(float* dst, const float* src, RowAt row_at,
-                                                int i0, int rows, int k0, int nk, int N) {
-  static_assert(kThr == 128 && kT == 64, "four warps cover 64 rows");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kl = lane & 7, il = lane >> 3;
-  const float* rp[4];
-  bool rin[4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = 4 * (warp + 4 * u) + il;
-    rin[u] = i0 + i < rows;
-    rp[u] = rin[u] ? src + row_at(i0 + i) + k0 + kl : src;
-  }
-  for (int v = 0; v < nk / 8; ++v) {
-    const bool kin = k0 + 8 * v + kl < N;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const bool in = rin[u] && kin;
-      spm::cp_async4(dst + (8 * v + kl) * kLd + 4 * (warp + 4 * u) + il, in ? rp[u] + 8 * v : src,
-                     in);
-    }
-  }
-}
-
-// dst[k][w] = src[k0 + k][w0 + w] of a row-major [K][W] source, k < R,
-// w < kT; zero past K or W. 16-byte copies when `vec` (W % 4 == 0 and src
-// 16-byte aligned), else 4-byte ones; thread t copies the same columns of
-// rows t / (copies a row) + (rows a pass) m.
-template <int R>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src, int64_t row_stride,
-                                          int k0, int K, int w0, int W, bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int kPer = kT / 4, kStep = kThr / kPer;     // 16 copies a row, 8 rows a pass
-    const int kt = tid / kPer, w = tid % kPer * 4;
-    const bool win = w0 + w < W;
-    const float* sp = src + (int64_t)(k0 + kt) * row_stride + w0 + w;
-#pragma unroll
-    for (int m = 0; m < R / kStep; ++m) {
-      const bool in = win && k0 + kt + kStep * m < K;
-      spm::cp_async16(dst + (kt + kStep * m) * kLd + w,
-                      in ? sp + (int64_t)kStep * m * row_stride : src, in);
-    }
-  } else {
-    constexpr int kStep = kThr / kT;                      // 2 rows a pass
-    const int kt = tid / kT, w = tid % kT;
-    const bool win = w0 + w < W;
-    const float* sp = src + (int64_t)(k0 + kt) * row_stride + w0 + w;
-#pragma unroll
-    for (int m = 0; m < R / kStep; ++m) {
-      const bool in = win && k0 + kt + kStep * m < K;
-      spm::cp_async4(dst + (kt + kStep * m) * kLd + w,
-                     in ? sp + (int64_t)kStep * m * row_stride : src, in);
-    }
-  }
-}
-
-// ---- 1. chunk states --------------------------------------------------------
-
-template <typename Tx>
-__global__ void __launch_bounds__(kThr)
-ssd_chunk_state_kernel(const Tx* __restrict__ x, const float* __restrict__ da,
-                       const float* __restrict__ dt, const float* __restrict__ Bm,
-                       float* __restrict__ states, float* __restrict__ cum, int S, int H, int P,
-                       int N, int cs) {
-  extern __shared__ __align__(16) float smem[];
-  float* ring_b = smem;                   // 2 x [kK][kLd]: B rows j, columns n
-  float* ring_x = ring_b + 2 * kK * kLd;  // 2 x [kK][kLd]: xdt_j exp(cum_last - cum_j)
-  float* ccum = ring_x + 2 * kK * kLd;    // [cs] the chunk's cum
-  float* cdt = ccum + cs;                 // [cs] its dt
-  float* cw = cdt + cs;                   // [cs] exp(cum_last - cum_j)
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nc = S / cs, ntn = ceil_div(N, kT), npt = ceil_div(P, kT);
-  int64_t q = blockIdx.x;
-  const int pt = (int)(q % npt);
-  q /= npt;
-  const int nt = (int)(q % ntn);
-  q /= ntn;
-  const int c = (int)(q % nc);
-  const int64_t bh = q / nc, b = bh / H, h = bh % H;
-  const int c0 = c * cs, n0 = nt * kT, p0 = pt * kT;
-  auto row = [&](int s) { return (b * S + c0 + s) * H + h; };   // of a [Bz, S, H] tensor
-
-  // cum = cumsum(da) over the chunk: one warp's scan
-  for (int j = tid; j < cs; j += kThr) {
-    ccum[j] = __ldg(da + row(j));
-    cdt[j] = __ldg(dt + row(j));
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float carry = 0.f;
-    for (int base = 0; base < cs; base += 32) {
-      float v = base + lane < cs ? ccum[base + lane] : 0.f;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, off);
-        if (lane >= off) v += u;
-      }
-      v += carry;
-      if (base + lane < cs) ccum[base + lane] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
-  }
-  __syncthreads();
-  const float last = ccum[cs - 1];
-  for (int j = tid; j < cs; j += kThr) {
-    if (nt == 0 && pt == 0) cum[bh * S + c0 + j] = ccum[j];
-    cw[j] = expf(last - ccum[j]);
-  }
-  __syncthreads();
-
-  const int nslab = ceil_div(cs, kK);
-  const bool vec_b = N % 4 == 0 && aligned16(Bm);
-  const float* bc = Bm + (int64_t)row(0) * N;              // row j at bc + j H N
-  auto issue_b = [&](int s) {
-    copy_rows<kK>(ring_b + (s & 1) * kK * kLd, bc, (int64_t)H * N, s * kK, cs, n0, N, vec_b);
-  };
-  // x of slab s, raw into registers (nothing uses them until store_x, so
-  // the loads stay in flight during a slab's FMAs), then x dt w into
-  // the ring
-  constexpr int kXr = kK * kT / kThr, kXStep = kThr / kT;   // rows jx + 2 m, column px
-  const int jx = tid / kT, px = tid % kT;
-  const bool pin = p0 + px < P;
-  const Tx* xp = x + (int64_t)row(jx) * P + p0 + px;
-  const int64_t xstep = (int64_t)H * P;                       // one sequence step
-  Tx xr[kXr];
-  auto load_x = [&](int s) {
-    const int j0 = s * kK;
-#pragma unroll
-    for (int m = 0; m < kXr; ++m) {
-      const int j = j0 + jx + kXStep * m;
-      xr[m] = pin && j < cs ? xp[(int64_t)(j0 + kXStep * m) * xstep] : Tx(0.f);
-    }
-  };
-  auto store_x = [&](int s) {
-    float* dst = ring_x + (s & 1) * kK * kLd;
-    const int j0 = s * kK;
-#pragma unroll
-    for (int m = 0; m < kXr; ++m) {
-      const int j = j0 + jx + kXStep * m;
-      dst[(jx + kXStep * m) * kLd + px] = j < cs ? widen(xr[m]) * cdt[j] * cw[j] : 0.f;
-    }
-  };
-
-  issue_b(0);
-  spm::cp_async_commit();
-  load_x(0);
-  store_x(0);
-  float acc[8][4];
-  zero(acc);
-  for (int s = 0; s < nslab; ++s) {
-    if (s + 1 < nslab) load_x(s + 1);     // in flight during this slab's FMAs
-    spm::cp_async_wait<0>();
-    __syncthreads();                      // slab s is in; slab s - 1 is consumed
-    if (s + 1 < nslab) issue_b(s + 1);
-    spm::cp_async_commit();
-    tile_fma<kK>(ring_b + (s & 1) * kK * kLd, ring_x + (s & 1) * kK * kLd, ty, tx, acc);
-    if (s + 1 < nslab) store_x(s + 1);
-  }
-
-  float* out = states + (bh * nc + c) * (int64_t)N * P;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int n = n0 + row_of(ty, r);
-    if (n >= N) continue;
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq) {
-      const int p = p0 + 4 * tx + qq;
-      if (p < P) out[(int64_t)n * P + p] = acc[r][qq];
-    }
-  }
-}
-
-// ---- 2. the scan over chunks -------------------------------------------------
-
-__global__ void __launch_bounds__(kPassThr)
-ssd_state_pass_kernel(float* __restrict__ states, const float* __restrict__ cum,
-                      float* __restrict__ state, int S, int cs, int64_t NP, int64_t total) {
-  const int64_t e = (int64_t)blockIdx.x * kPassThr + threadIdx.x;
-  if (e >= total) return;
-  const int nc = S / cs;
-  const int64_t bh = e / NP;
-  float* sp = states + bh * nc * NP + e % NP;        // s_c at sp[c NP]
-  const float* last = cum + bh * S + cs - 1;         // cum_last of chunk c at last[c cs]
-  float hv = 0.f;
-  for (int c0 = 0; c0 < nc; c0 += kPassUnroll) {
-    float sv[kPassUnroll], dv[kPassUnroll];
-#pragma unroll
-    for (int u = 0; u < kPassUnroll; ++u) {
-      if (c0 + u < nc) {
-        sv[u] = sp[(int64_t)(c0 + u) * NP];
-        dv[u] = expf(__ldg(last + (int64_t)(c0 + u) * cs));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kPassUnroll; ++u) {
-      if (c0 + u < nc) {
-        sp[(int64_t)(c0 + u) * NP] = hv;             // h_in[c]
-        hv = __fadd_rn(__fmul_rn(dv[u], hv), sv[u]);  // exp(cum_last) h + s_c
-      }
-    }
-  }
-  state[e] = hv;
-}
-
 // ---- 3. y ----------------------------------------------------------------------
 
 template <typename Tx, bool kStreamC>
@@ -347,7 +94,8 @@ __global__ void __launch_bounds__(kThr)
 ssd_chunk_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ Bm, const float* __restrict__ Cm,
                       const float* __restrict__ cum, const float* __restrict__ hin,
-                      Tx* __restrict__ y, int S, int H, int P, int N, int cs, int64_t BH) {
+                      Tx* __restrict__ y, int S, int H, int P, int N, int cs, int G,
+                      int64_t BH) {
   constexpr bool kF32 = std::is_same<Tx, float>::value;
   extern __shared__ __align__(16) float smem[];
   const int NK = n_pad(N), nslab = NK / kK;
@@ -369,10 +117,10 @@ ssd_chunk_scan_kernel(const Tx* __restrict__ x, const float* __restrict__ dt,
   const int pt = (int)(q % npt);
   q /= npt;
   const int c = (int)(q % nc);
-  const int64_t bh = q / nc, b = bh / H, h = bh % H;
+  const int64_t bh = q / nc, b = bh / H, h = bh % H, g = h / (H / G);
   const int c0 = c * cs, i0 = it * kT, p0 = pt * kT;
   auto row = [&](int s) { return (b * S + c0 + s) * H + h; };   // of a [Bz, S, H] tensor
-  auto row_n = [&](int s) { return (int64_t)row(s) * N; };
+  auto row_n = [&](int s) { return ((b * S + c0 + s) * G + g) * N; };   // of B, C
   const float* hc = hin + (bh * nc + c) * (int64_t)N * P;       // h_in[c], [N][P]
   const bool vec_h = P % 4 == 0 && aligned16(hin), vec_x = P % 4 == 0 && aligned16(x);
 
@@ -512,22 +260,9 @@ bool shapes_ok(int64_t Bz, int64_t S, int64_t H, int64_t P, int64_t N, int64_t c
 }
 
 template <typename Tx>
-int launch_state(const void* x, const float* da, const float* dt, const float* Bm, float* states,
-                 float* cum, int64_t Bz, int S, int H, int P, int N, int cs, cudaStream_t st) {
-  auto kern = ssd_chunk_state_kernel<Tx>;
-  const size_t smem = state_smem(cs);
-  int err = spm::allow_smem(kern, smem);
-  if (err) return err;
-  const int64_t blocks = Bz * H * (S / cs) * ceil_div(N, kT) * ceil_div(P, kT);
-  kern<<<(unsigned)blocks, kThr, smem, st>>>((const Tx*)x, da, dt, Bm, states, cum, S, H, P, N,
-                                              cs);
-  return (int)cudaGetLastError();
-}
-
-template <typename Tx>
 int launch_scan(const void* x, const float* dt, const float* Bm, const float* Cm,
                 const float* cum, const float* hin, void* y, int64_t Bz, int S, int H, int P,
-                int N, int cs, cudaStream_t st) {
+                int N, int cs, int G, cudaStream_t st) {
   auto kern = scan_streams_c(N, cs) ? ssd_chunk_scan_kernel<Tx, true>
                                     : ssd_chunk_scan_kernel<Tx, false>;
   const size_t smem = scan_smem(N, cs);
@@ -536,7 +271,7 @@ int launch_scan(const void* x, const float* dt, const float* Bm, const float* Cm
   const int64_t BH = Bz * H;
   const int64_t blocks = BH * (S / cs) * ceil_div(cs, kT) * ceil_div(P, kT);
   kern<<<(unsigned)blocks, kThr, smem, st>>>((const Tx*)x, dt, Bm, Cm, cum, hin, (Tx*)y, S, H, P,
-                                              N, cs, BH);
+                                              N, cs, G, BH);
   return (int)cudaGetLastError();
 }
 
@@ -545,60 +280,28 @@ int launch_scan(const void* x, const float* dt, const float* Bm, const float* Cm
 // Each launcher returns cudaGetLastError() after its launch (0 on success),
 // or cudaErrorInvalidValue for shapes, types or shared memory it does not
 // take. Every tensor is contiguous; x is F32, BF16 or F16 by `dtype`, the rest
-// float32. Workspaces: cum [Bz, H, S], states [Bz, H, S / cs, N, P].
-
-// 1: states[b, h, c] = s_c and cum, from x, da, dt, B
-extern "C" int ssd_chunk_state_launch(int dtype, const void* x, const void* da, const void* dt,
-                                      const void* Bm, void* states, void* cum, int64_t Bz,
-                                      int64_t S, int64_t H, int64_t P, int64_t N, int64_t cs,
-                                      void* stream) {
-  if (!shapes_ok(Bz, S, H, P, N, cs) || state_smem((int)cs) > spm::kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  auto f = [](const void* p) { return (const float*)p; };
-  if (dtype == F32)
-    return launch_state<float>(x, f(da), f(dt), f(Bm), (float*)states, (float*)cum, Bz, (int)S,
-                               (int)H, (int)P, (int)N, (int)cs, st);
-  if (dtype == BF16)
-    return launch_state<__nv_bfloat16>(x, f(da), f(dt), f(Bm), (float*)states, (float*)cum, Bz,
-                                       (int)S, (int)H, (int)P, (int)N, (int)cs, st);
-  if (dtype == F16)
-    return launch_state<__half>(x, f(da), f(dt), f(Bm), (float*)states, (float*)cum, Bz,
-                                (int)S, (int)H, (int)P, (int)N, (int)cs, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// 2: states[b, h, c] <- h_in[c] in place; state = the final h
-extern "C" int ssd_state_pass_launch(void* states, const void* cum, void* state, int64_t Bz,
-                                     int64_t S, int64_t H, int64_t P, int64_t N, int64_t cs,
-                                     void* stream) {
-  if (!shapes_ok(Bz, S, H, P, N, cs)) return (int)cudaErrorInvalidValue;
-  const int64_t total = Bz * H * N * P;
-  const int64_t blocks = (total + kPassThr - 1) / kPassThr;
-  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
-  ssd_state_pass_kernel<<<(unsigned)blocks, kPassThr, 0, (cudaStream_t)stream>>>(
-      (float*)states, (const float*)cum, (float*)state, (int)S, (int)cs, N * P, total);
-  return (int)cudaGetLastError();
-}
+// float32; B and C are [Bz, S, G, N] for G groups that divide the H heads
+// (head h reads group h / (H / G); G = H for head-broadcast B and C).
+// Workspaces: cum [Bz, H, S], states [Bz, H, S / cs, N, P].
 
 // 3: y from x, dt, B, C, cum and h_in (states after kernel 2)
 extern "C" int ssd_chunk_scan_launch(int dtype, const void* x, const void* dt, const void* Bm,
                                      const void* Cm, const void* cum, const void* hin, void* y,
                                      int64_t Bz, int64_t S, int64_t H, int64_t P, int64_t N,
-                                     int64_t cs, void* stream) {
-  if (!shapes_ok(Bz, S, H, P, N, cs) || N > (1 << 20) ||
+                                     int64_t cs, int64_t G, void* stream) {
+  if (!shapes_ok(Bz, S, H, P, N, cs) || G <= 0 || H % G != 0 || N > (1 << 20) ||
       scan_smem((int)N, (int)cs) > spm::kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   auto f = [](const void* p) { return (const float*)p; };
   if (dtype == F32)
     return launch_scan<float>(x, f(dt), f(Bm), f(Cm), f(cum), f(hin), y, Bz, (int)S, (int)H,
-                              (int)P, (int)N, (int)cs, st);
+                              (int)P, (int)N, (int)cs, (int)G, st);
   if (dtype == BF16)
     return launch_scan<__nv_bfloat16>(x, f(dt), f(Bm), f(Cm), f(cum), f(hin), y, Bz, (int)S,
-                                      (int)H, (int)P, (int)N, (int)cs, st);
+                                      (int)H, (int)P, (int)N, (int)cs, (int)G, st);
   if (dtype == F16)
     return launch_scan<__half>(x, f(dt), f(Bm), f(Cm), f(cum), f(hin), y, Bz, (int)S, (int)H,
-                               (int)P, (int)N, (int)cs, st);
+                               (int)P, (int)N, (int)cs, (int)G, st);
   return (int)cudaErrorInvalidValue;
 }

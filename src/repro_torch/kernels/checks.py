@@ -924,6 +924,114 @@ def check_ssd_parts(rng, Bz, S, H, P, N, chunk, device,
     return err
 
 
+def ssd_train_cases() -> Sequence[dict]:
+    """Shapes of the training scan's card checks: :func:`ssd_part_cases`
+    with one group, then two grouped ones (H / G 2 and 3; P and N past a
+    tile, neither a multiple of 4 nor of 64 in the second)."""
+    return tuple(dict(s, G=1) for s in ssd_part_cases()) + (
+        dict(Bz=2, S=144, H=4, P=24, N=16, G=2, chunk=48),
+        dict(Bz=1, S=256, H=6, P=130, N=201, G=2, chunk=64))
+
+
+def ssd_train_card_cases() -> Sequence[dict]:
+    """:func:`ssd_train_cases`, then the benchmark cell's widths at two
+    rows (mamba2-1.3b: 4096 tokens, 64 heads of 64 on one group, N 128,
+    chunk 256): the shape whose head loops and sums the main path runs."""
+    return tuple(ssd_train_cases()) + (
+        dict(Bz=2, S=4096, H=64, P=64, N=128, G=1, chunk=256),)
+
+
+#: the outputs :func:`check_ssd_train` compares, in order
+SSD_TRAIN_OUTPUTS = ("y", "final", "dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def ssd_train_operands(rng, Bz, S, H, P, N, G, device, dtype=torch.float32,
+                       bc_dtype=torch.float32):
+    """:func:`ssd_operands` (B and C in ``bc_dtype``), an initial state, the
+    gradient of y (standard normal, in ``dtype``) and of the final state,
+    both states [Bz, H, N, P] (the kernels' layout)."""
+    x, dt, A, B, C = ssd_operands(rng, Bz, S, H, P, N, G, device, dtype)
+    init, dfinal = (random_floats(rng, (Bz, H, N, P), torch.float32, device)
+                    for _ in range(2))
+    return (x, dt, A, B.to(bc_dtype), C.to(bc_dtype), init,
+            random_floats(rng, (Bz, S, H, P), dtype, device), dfinal)
+
+
+def ssd_train_outputs(x, dt, A, B, C, init, dy, dfinal, chunk) -> tuple:
+    """y, the final state and the gradients of (x, dt, A, B, C, init) of
+    ``ssd_scan.ssd_train`` under autograd, for the output gradients dy and
+    dfinal; states in the kernels' layout."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, A, B, C, init)]
+    y, final = ss.ssd_train(*leaves[:5], chunk=chunk,
+                            initial_state=leaves[5].transpose(-1, -2))
+    grads = torch.autograd.grad((y, final), leaves,
+                                (dy, dfinal.transpose(-1, -2)))
+    return (y.detach(), final.detach().transpose(-1, -2)) + grads
+
+
+def ssd_train_plain(x, dt, A, B, C, init, dy, dfinal, chunk,
+                    abs_terms=False) -> tuple:
+    """What :func:`ssd_train_outputs` returns, by the plain versions: the
+    three plain steps, then ``ssd_scan.ssd_backward_plain``."""
+    cs = ss.chunk_size(x.shape[1], chunk)
+    states, cum = ss.chunk_state_plain(x, dt.float() * A.float(), dt, B, cs)
+    h_in, final = ss.state_pass_plain(states, cum, cs, init)
+    y = ss.chunk_scan_plain(x, dt, B, C, cum, h_in, cs)
+    return (y, final) + ss.ssd_backward_plain(x, dt, A, B, C, cum, h_in, dy,
+                                              dfinal, cs, abs_terms)
+
+
+def ssd_train_tolerance(x, dt, A, B, C, init, dy, dfinal, chunk):
+    """``(rel, terms)``: each output of :func:`ssd_train_outputs` lies
+    within ``rel`` times its entry of ``terms`` (the plain version run on
+    |x|, |B|, |C|, |init|, |dy|, |dfinal| with the decays kept and the
+    decay's gradient's two parts added: the sum of each output's absolute
+    terms) of the plain version's. Per implementation: the products over
+    N and P (``gamma(N) + gamma(P)``), the chunk's sums and the reverse
+    running sum of the decay's gradient (``2 gamma(cs)``), the sum over a
+    group's heads and over the chunks for A (``gamma(H / G) + gamma(Bz
+    S / cs)``), the cum inside each exp (``2 gamma(cs) cs max|da|``, as
+    :func:`ssd_tolerance`), a few ulps of exp and products, and the
+    states carried over every chunk in either direction (``gamma(cs) +
+    gamma(N) + gamma(P) + 8 u`` each); two implementations double it."""
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    cs = ss.chunk_size(S, chunk)
+    nc = S // cs
+    da_max = (dt.float() * A.float()).abs().max().item() if dt.numel() else 0
+    one = (gamma(N) + gamma(P) + 2 * gamma(cs) + gamma(H // G)
+           + gamma(Bz * nc) + 2 * gamma(cs) * cs * da_max + 16 * U32
+           + nc * (gamma(cs) + gamma(N) + gamma(P) + 8 * U32))
+    terms = ssd_train_plain(x.float().abs(), dt.abs(), A, B.float().abs(),
+                            C.float().abs(), init.abs(), dy.float().abs(),
+                            dfinal.abs(), chunk, abs_terms=True)
+    return 2 * one, terms
+
+
+def check_ssd_train(rng, Bz, S, H, P, N, G, chunk, device,
+                    dtype=torch.float32, bc_dtype=torch.float32) -> dict:
+    """``ssd_scan.ssd_train``'s outputs and gradients (on the card, the
+    forward's four launches and the backward's seven) against the
+    plain version on the same tensors, each within
+    :func:`ssd_train_tolerance` capped at the JAX test's 3e-3 (plus one
+    step of a bf16 / float16 output). Returns the largest absolute
+    difference by output (:data:`SSD_TRAIN_OUTPUTS`)."""
+    _no_tf32(device)
+    ops = ssd_train_operands(rng, Bz, S, H, P, N, G, device, dtype, bc_dtype)
+    got = ssd_train_outputs(*ops, chunk)
+    want = ssd_train_plain(*ops, chunk)
+    rel, terms = ssd_train_tolerance(*ops, chunk)
+    err = {}
+    for name, g, w, t in zip(SSD_TRAIN_OUTPUTS, got, want, terms):
+        if g.shape != w.shape:
+            raise AssertionError(f"ssd_train {name}: shape {tuple(g.shape)}, "
+                                 f"want {tuple(w.shape)}")
+        err[name] = _capped(f"ssd_train {name}", g, w.to(g.dtype), rel, t,
+                            SSD_TOL)
+    return err
+
+
 MATMUL_TYPES = ((torch.float32, None), (torch.bfloat16, None),
                 (torch.bfloat16, torch.float32), (torch.int8, None))
 CONV_TYPES = ((torch.int32, 0), (torch.int32, 4), (torch.int32, 31),

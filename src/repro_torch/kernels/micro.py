@@ -394,15 +394,30 @@ def ssd_part_costs(s: dict) -> Dict[str, Tuple[int, List[Tuple[int, str]]]]:
     inputs read once (workspaces included), its outputs written once, a
     multiply-add two operations. The chunk states and the chunk scan
     split the function's products (:func:`_ssd_cost`); the scan over
-    chunks adds a multiply and an add per state element and chunk."""
+    chunks adds a multiply and an add per state element and chunk. Then
+    the launches of ``ssd_scan.ssd_train`` (``TRAIN_PARTS`` and
+    ``BWD_PARTS``, with B and C per group: ``s["G"]``): the scores C B^T
+    once per group over the chunk's lower triangle, y from them; the
+    backward's chunk terms and reverse pass as the forward's, xbar (the
+    scores' and the state's products again), Shat (the heads' dy . x
+    over P), Cbar and Bbar (Shat's product once per group, the state
+    term per head, and its row sums with the tile's own rows), and the
+    decay's gradient (a dot of sbar and h_c per chunk); each workspace of
+    row sums written once and read once."""
     size = torch.empty((), dtype=DTYPES[s["dtype"]]).element_size()
     Bz, S, H, P, N = (s[c] for c in ("Bz", "S", "H", "P", "N"))
+    G = s.get("G", H)
     cs = min(s["chunk"], S)
     nc = S // cs
     x, row, bn = Bz * S * H * P * size, Bz * S * H * 4, Bz * S * H * N * 4
     states, cum, state = Bz * H * nc * N * P * 4, Bz * H * S * 4, \
         Bz * H * N * P * 4
-    chunks = Bz * H * nc
+    chunks, groups = Bz * H * nc, Bz * G * nc
+    tri = cs * (cs + 1) // 2
+    gbn, tiles = Bz * S * G * N * 4, groups * tri * 4
+    rows = lambda n: n * row                             # noqa: E731
+    npt, ntn, ntile = (-(-w // 64) for w in (P, N, cs))
+    prods = chunks * (2 * tri * P + 2 * cs * N * P)      # y's, xbar's
     return {
         "ssd_chunk_state": (x + 2 * row + bn + states + cum,
                             [(chunks * 2 * cs * N * P, "fp32")]),
@@ -410,6 +425,26 @@ def ssd_part_costs(s: dict) -> Dict[str, Tuple[int, List[Tuple[int, str]]]]:
                            [(chunks * 2 * N * P, "fp32")]),
         "ssd_chunk_scan": (2 * x + row + 2 * bn + cum + states, [(
             chunks * (cs * (cs + 1) * (N + P) + 2 * cs * N * P), "fp32")]),
+        "ssd_scores": (2 * gbn + tiles, [(groups * 2 * tri * N, "fp32")]),
+        "ssd_train_scan": (2 * x + row + gbn + cum + states + tiles,
+                           [(prods, "fp32")]),
+        "ssd_bwd_chunk_state": (x + row + gbn + states,
+                                [(chunks * 2 * cs * N * P, "fp32")]),
+        "ssd_bwd_state_pass": (2 * states + chunks * 4 + 2 * state,
+                               [(chunks * 2 * N * P, "fp32")]),
+        "ssd_bwd_dx": (3 * x + row + gbn + cum + states + tiles
+                       + rows(npt), [(prods, "fp32")]),
+        "ssd_bwd_ds": (2 * x + row + cum + 2 * tiles
+                       + rows(ntile + 1), [(chunks * 2 * tri * P, "fp32")]),
+        "ssd_bwd_dc": (x + row + 3 * gbn + cum + states + tiles + rows(ntn),
+                       [(groups * 2 * tri * N + chunks * 2 * cs * N * P,
+                         "fp32")]),
+        "ssd_bwd_db": (x + row + 3 * gbn + cum + states + tiles + rows(ntn),
+                       [(groups * 2 * tri * N + chunks * 2 * cs * N * P,
+                         "fp32")]),
+        "ssd_bwd_dcum": (2 * states + 2 * row + cum + H * 4 + chunks * 4
+                         + rows(npt + ntile + 1 + 2 * ntn),
+                         [(chunks * 2 * N * P, "fp32")]),
     }
 
 
@@ -637,6 +672,69 @@ def time_kernel(w: Workload, x: dict) -> dict:
     return dict(ms=k["device_ms"] or k["call_ms"],
                 ms_source="profiler" if k["device_ms"] else "events",
                 call_ms=k["call_ms"], **bound(*cost(w)))
+
+
+#: ``ssd_scan.ssd_train`` at the benchmark cell's row: mamba2-1.3b at 8 x
+#: 4096 tokens (configs/mamba2_1_3b.py), bf16 activations and B and C per
+#: group as the zoo makes them, chunk 256
+SSD_TRAIN_CELL = dict(Bz=8, S=4096, H=64, P=64, N=128, G=1, chunk=256,
+                      dtype="bfloat16")
+#: the device names of ``ssd_train``'s kernels: the forward's, then the
+#: backward's own (its chunk terms and reverse pass run the forward's
+#: chunk-state and state-pass kernels again)
+SSD_TRAIN_KERNELS = ("ssd_scores_kernel", "ssd_chunk_state_kernel",
+                     "ssd_state_pass_kernel", "ssd_train_scan_kernel")
+SSD_BWD_KERNELS = ("ssd_bwd_dx_kernel", "ssd_bwd_ds_kernel",
+                   "ssd_bwd_dbc_kernel", "ssd_bwd_dcum_kernel")
+
+
+def time_ssd_train(s: dict, rng: np.random.Generator, device) -> dict:
+    """``ssd_train``'s forward (without autograd, as remat's first pass
+    runs it) and its forward and backward under autograd at ``s``, each
+    beside the plain layer's (``models.ssm.ssd_chunked_plain``, what
+    ``ssd_chunked`` runs on CPU tensors) and its bound (the parts' costs
+    of :func:`ssd_part_costs` summed), with device ms by kernel; the
+    backward is their difference. Launch counters set back."""
+    from repro_torch.models.ssm import ssd_chunked_plain
+    saved = save_counts()
+    dt_ = DTYPES[s["dtype"]]
+    ops = checks.ssd_train_operands(rng, s["Bz"], s["S"], s["H"], s["P"],
+                                    s["N"], s["G"], device, dt_, dt_)
+    ins, dy = tuple(t.requires_grad_(True) for t in ops[:5]), ops[6]
+    costs = ssd_part_costs(s)
+
+    def forward(fn):
+        def run():
+            with torch.no_grad():
+                fn(*ins, chunk=s["chunk"])
+        return run
+
+    def forward_backward(fn):
+        def run():
+            y, _ = fn(*ins, chunk=s["chunk"])
+            torch.autograd.grad(y, ins, dy)
+        return run
+
+    def summed(parts):
+        return bound(sum(costs[p][0] for p in parts),
+                     [(sum(costs[p][1][0][0] for p in parts), "fp32")])
+
+    out = {}
+    for label, wrap, names, parts in (
+            ("forward", forward, SSD_TRAIN_KERNELS, ss.TRAIN_PARTS),
+            ("forward_backward", forward_backward,
+             SSD_TRAIN_KERNELS + SSD_BWD_KERNELS,
+             ss.TRAIN_PARTS + ss.BWD_PARTS)):
+        kern, plain = wrap(ss.ssd_train), wrap(ssd_chunked_plain)
+        k = timed(kern, reps_for(kern), names)
+        out[label] = dict(times(k, timed(plain, reps_for(plain))),
+                          device_ms_by=k["device_ms_by"], **summed(parts))
+    f, fb = out["forward"], out["forward_backward"]
+    out["backward"] = dict(ms=fb["ms"] - f["ms"],
+                           plain_ms=fb["plain_ms"] - f["plain_ms"],
+                           **summed(ss.BWD_PARTS))
+    restore_counts(saved)
+    return out
 
 
 # ---------------------------------------------------------------------------

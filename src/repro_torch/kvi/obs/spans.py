@@ -236,10 +236,10 @@ def phased(name: str, **args):
 class _Box:
     """What the two markers of one bracketed call share."""
 
-    __slots__ = ("step", "name", "span")
+    __slots__ = ("step", "name", "args", "span")
 
-    def __init__(self, st: _Step, name: str):
-        self.step, self.name, self.span = st, name, None
+    def __init__(self, st: _Step, name: str, args: dict):
+        self.step, self.name, self.args, self.span = st, name, args, None
 
 
 class _OpensInBackward(torch.autograd.Function):
@@ -255,7 +255,8 @@ class _OpensInBackward(torch.autograd.Function):
     def backward(ctx, *grads):
         box = ctx.box
         if COLLECTOR.current is box.step:
-            box.span = _Span(box.step, box.name, {"phase": "backward"})
+            box.span = _Span(box.step, box.name,
+                             dict(box.args, phase="backward"))
             box.step.open(box.span)
         return (None,) + grads
 
@@ -291,9 +292,11 @@ def _marked(cls, box, xs: tuple) -> tuple:
     return tuple(out)
 
 
-def bracketed(name: str, fn, *inputs, **kw):
-    """``fn(*inputs, **kw)`` in a :func:`phased` span ``name``, its
-    backward bracketed as the span ``name`` of phase ``backward``: from
+def bracketed(name: str, fn, *inputs, span_args: Optional[dict] = None,
+              **kw):
+    """``fn(*inputs, **kw)`` in a :func:`phased` span ``name`` with the args
+    ``span_args``, its backward bracketed as the span ``name`` of phase
+    ``backward`` (the same args): from
     the gradient of its output (a tuple's first, the one the loss
     reaches; marking the others would pull their graphs into the
     loss's) to the gradients of its tensor inputs. The markers are made
@@ -303,12 +306,13 @@ def bracketed(name: str, fn, *inputs, **kw):
     st = COLLECTOR.current
     if st is None:
         return fn(*inputs, **kw)
-    with phased(name):
+    args = dict(span_args or {})
+    with phased(name, **args):
         mark = torch.is_grad_enabled() and all(
             type(x) is torch.Tensor for x in inputs if x is not None)
         if not mark:
             return fn(*inputs, **kw)
-        box = _Box(st, name)
+        box = _Box(st, name, args)
         out = fn(*_marked(_ClosesInBackward, box, inputs), **kw)
         if isinstance(out, tuple):
             return _marked(_OpensInBackward, box, out[:1]) + out[1:]

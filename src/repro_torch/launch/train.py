@@ -13,6 +13,15 @@ trace and the metrics snapshot. Fault tolerance: periodic async checkpoints in t
 reference's format, a preemption-triggered sync save, resume from
 ``LATEST``.
 
+On a machine with a card, ``build_trainer`` has the caching allocator
+grow its segments in place (expandable segments). A full-width step
+makes its loss's float32 tensors anew (five of 6.16 GiB at mamba2-1.3b's
+8 x 4096, each in a segment of its own), and AdamW's update then makes
+each stacked leaf's new param, moments and temporaries (1.5 GiB apiece)
+in those segments once they are free; with fixed segments the next
+step's logits find no whole 6.16 GiB block, and the card runs out at
+46.5 GiB allocated, 27 GiB of it cached in pieces.
+
 On a mesh (``build_trainer(mesh=)``, a ``DeviceMesh`` over NCCL or gloo
 ranks) the arch's own ``Parallelism`` holds (FSDP, sequence
 parallelism, remat), as the reference's does; ``init_state`` and
@@ -47,7 +56,10 @@ def build_trainer(arch: str, *, reduced: bool, seq: int, batch: int,
                   lr: float = 3e-4, overrides: dict = None):
     """The reference's ``build_trainer``; ``overrides`` (as the dry run's
     ``--override``) sets ``Parallelism`` or ``ModelConfig`` fields after
-    the one-device rule."""
+    the one-device rule. On a machine with a card the allocator's
+    segments grow in place from here on (see the module's docstring)."""
+    if torch.cuda.is_available():
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     spec = get_spec(arch)
     cfg = reduced_model(spec.model) if reduced else spec.model
     # one device: no remat, no FSDP, no sequence parallelism

@@ -10,7 +10,10 @@ dispatch on cfg.family. Layers are stacked along a leading "layers" axis,
 as the reference's (so a reference tree maps 1:1), and the reference's
 ``lax.scan`` over them is a loop over ``l``. Like the reference's, the
 zoo calls the plain layers (``flash_attention_xla``, ``decode_attention``,
-``ssd_chunked``), not the kernels. ``par.remat`` ("block" or "full")
+``ssd_chunked``), not the kernels, with one exception: on the card
+``ssd_chunked`` itself runs the SSD's training kernels
+(``kernels.ssd_scan.ssd_train``), so the zoo's training and prefill SSD
+take them, while the reference's zoo differentiates its plain layer. ``par.remat`` ("block" or "full")
 recomputes each block body in the backward, as the reference's
 ``jax.checkpoint`` does: ``torch.utils.checkpoint`` around the body, only
 where autograd records (serving runs none, so remat leaves it as is).
@@ -305,9 +308,11 @@ def _ssm_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
             ssd_state, xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0])
         y = y[:, None]
     else:
-        # the "ssd" span, its backward bracketed (a traced train step)
+        # the "ssd" span, its backward bracketed (a traced train step);
+        # its arg path says whether the card's kernels ran
         y, new_state = spans.bracketed(
             "ssd", ssm_lib.ssd_chunked, xh, dt, A, Bh, Ch,
+            span_args={"path": ssm_lib.ssd_path(xh)},
             chunk=min(cfg.ssm_chunk, S), initial_state=ssd_state)
     y = y + xh * lp["D_skip"].float()[None, None, :, None].to(dtype)
     # (and the heads merged back: the gradient split the same way)

@@ -3,6 +3,11 @@
 recurrent-across-chunk training path, O(1)-state decode path.
 
 The chunked algorithm is the oracle for kernels/ssd_scan.py (same math).
+On CUDA tensors ``ssd_chunked`` runs the card's kernels instead
+(``kernels.ssd_scan.ssd_train``: the scan and its gradient under one
+``autograd.Function``), so the zoo's training and prefill SSD take them;
+on CPU tensors it is the plain layer below, as the reference's zoo calls
+it. The path follows the tensors' device (:func:`ssd_path`).
 Shapes: x [B,S,H,P] heads x headdim, B/C [B,S,G,N] (G groups, GQA-style),
 dt [B,S,H] (post-softplus), A [H] negative. The state here is
 [B,H,P,N], as the reference's; the kernel's is [B,H,N,P].
@@ -16,7 +21,14 @@ import torch.nn.functional as F
 
 from repro_torch.compat import (DTensor, Partial, Replicate, Shard,
                                 local_map)
+from repro_torch.kernels import ssd_scan
 from repro_torch.models.sharding import gather_dims
+
+
+def ssd_path(x: torch.Tensor) -> str:
+    """``"kernel"`` where :func:`ssd_chunked` runs the card's kernels (CUDA
+    tensors), else ``"plain"``."""
+    return "kernel" if x.device.type == "cuda" else "plain"
 
 
 def _segsum_decay(a: torch.Tensor) -> torch.Tensor:
@@ -38,11 +50,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y [B,S,H,P], final_state [B,H,P,N]). f32 internals.
     S is padded up to a chunk multiple internally (dt=0 padding is exact:
-    zero contribution to outputs and decay-neutral for the state)."""
+    zero contribution to outputs and decay-neutral for the state). CUDA
+    tensors take ``ssd_scan.ssd_train`` (its kernels raise on a shape
+    they refuse); CPU tensors the plain body."""
     if isinstance(x, DTensor):
         return _ssd_on_mesh(x, dt, A, B, C, chunk, initial_state)
-    Bz, S, H, P = x.shape
-    G, N = B.shape[2], B.shape[3]
+    S = x.shape[1]
     if S % chunk:
         pad = chunk - S % chunk
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
@@ -52,6 +65,21 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y, state = ssd_chunked(x, dt, A, B, C, chunk=chunk,
                                initial_state=initial_state)
         return y[:, :S], state
+    if ssd_path(x) == "kernel":
+        return ssd_scan.ssd_train(x, dt, A, B, C, chunk=chunk,
+                                  initial_state=initial_state)
+    return ssd_chunked_plain(x, dt, A, B, C, chunk=chunk,
+                             initial_state=initial_state)
+
+
+def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+                      initial_state: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain layer: :func:`ssd_chunked` on CPU tensors, S a multiple
+    of the chunk, on any device (the card's timings run it there)."""
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
     nc, cs = S // chunk, chunk
     rep = H // G
 

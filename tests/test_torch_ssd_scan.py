@@ -249,10 +249,11 @@ def test_part_checks_rehearsed_on_the_cpu(dtype):
 
 def test_kernel_costs_split_the_function():
     """The chunk states and the chunk scan split the function's products
-    (``micro.cost``); the scan over chunks moves the workspace twice."""
+    (``micro.cost``); the scan over chunks moves the workspace twice.
+    The training launches (``ssd_train``) are costed beside them."""
     w = next(w for w in micro.CARD if w.name == "ssd_mamba2-1.3b_4096")
     parts = micro.ssd_part_costs(w.shape)
-    assert set(parts) == set(ss.PARTS)
+    assert set(parts) == set(ss.PARTS + ss.TRAIN_PARTS + ss.BWD_PARTS)
     nbytes, ops_terms = micro.cost(w)
     assert parts["ssd_chunk_state"][1][0][0] + \
         parts["ssd_chunk_scan"][1][0][0] == ops_terms[0][0]

@@ -116,7 +116,8 @@ def test_off_records_nothing_and_adds_no_node(arch, remat, monkeypatch):
     # the graph as the zoo made it before the spans: the scan called
     # directly
     with monkeypatch.context() as m:
-        m.setattr(spans, "bracketed", lambda name, fn, *a, **kw: fn(*a, **kw))
+        m.setattr(spans, "bracketed",
+                  lambda name, fn, *a, span_args=None, **kw: fn(*a, **kw))
         plain = graph(loss_of(cfg, par, rules, params, batch))
     assert sorted(off) == sorted(plain)
     # on: two marker nodes a scan, nothing else added
@@ -213,6 +214,8 @@ def test_span_tree(arch, remat):
         assert by_id[ev["args"]["parent"]]["name"] == "block"
     for ev in named("block", "recompute") + named("ssd", "backward"):
         assert ev["args"]["parent"] == top["backward"]["args"]["span"]
+    # on CPU tensors every phase of the scan is the plain layer
+    assert {ev["args"]["path"] for ev in named("ssd")} == {"plain"}
     n_attn = L if cfg.family == "hybrid" else 0
     assert len(named("attention")) == n_attn * (2 if remat == "block"
                                                 else 1)
@@ -331,12 +334,40 @@ def test_launch_train_trace_and_metrics_out(tmp_path):
 # on the card
 # ---------------------------------------------------------------------------
 
+def _device_ops(events) -> list:
+    """(start, end) ns of the device's operations in a profiler trace:
+    kernels, copies and sets, not the annotations mirrored on its lane."""
+    return sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in events
+                  if str(e.device_type()).rsplit(".", 1)[-1] == "CUDA"
+                  and e.duration_ns() > 0 and not e.is_user_annotation())
+
+
+def _covered_ns(ops, spans_ns) -> int:
+    """Nanoseconds of the union of ``ops`` inside the union of
+    ``spans_ns``."""
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+    return sum(max(0, min(b, d) - max(a, c))
+               for a, b in union(ops) for c, d in union(spans_ns))
+
+
 @pytest.mark.cuda
 def test_spans_on_the_card():
-    """Every span has its device time; forward + backward + optimizer
-    comes within 2 % of a step timed on the host with a synchronise at
-    each end; the recomputed blocks and the scan's backward, opened on
-    autograd's device thread, nest under the step's backward."""
+    """Every span has its device time; the device work of a step lies in
+    its forward, backward and optimizer spans (within 2 % of the step's
+    device-busy time, from a profiler trace of the same steps) and their
+    device times add up to no more than the step timed on the host with a
+    synchronise at each end: what the host timing holds past the spans is
+    the device idle between them, waiting on the host; the recomputed
+    blocks and the scan's backward, opened on autograd's device thread,
+    nest under the step's backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -348,7 +379,8 @@ def test_spans_on_the_card():
         step(params, state, batch)
     obs = Obs.on()
     host_ms = []
-    with spans.activate(obs):
+    with spans.activate(obs), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
             torch.cuda.synchronize()
             h0 = time.perf_counter()
@@ -362,10 +394,27 @@ def test_spans_on_the_card():
     assert all("dur" in ev and ev["dur"] >= 0 for ev in dev_evs)
     parts = sum(got["spans"][k]["device_ms"]
                 for k in ("forward", "backward", "optimizer"))
-    assert parts == pytest.approx(sum(host_ms), rel=0.02)
+    assert parts <= sum(host_ms)
+    base = obs.tracer.to_chrome()["otherData"]["wall_epoch_ns"]
+    phases = [(base + ev["ts"] * 1e3, base + (ev["ts"] + ev["dur"]) * 1e3)
+              for ev in dev_evs
+              if ev["name"] in ("forward", "backward", "optimizer")]
+    assert len(phases) == 3 * 5
+    ops = _device_ops(prof.profiler.kineto_results.events())
+    busy = _covered_ns(ops, [(ops[0][0], max(b for _, b in ops))])
+    inside = _covered_ns(ops, phases)
+    print(f"[spans] 5 steps of {cfg.num_layers} layers at 8 x 512: host "
+          f"{sum(host_ms):.3f} ms, forward + backward + optimizer "
+          f"{parts:.3f} ms, device busy {busy / 1e6:.3f} ms, of it in "
+          f"the spans {inside / 1e6:.3f} ms")
+    assert inside >= 0.98 * busy
     evs = span_events(obs)
     back = {ev["args"]["span"] for ev in evs if ev["name"] == "backward"}
     nested = [ev for ev in evs if (ev["name"], ev["args"].get("phase")) in
               (("block", "recompute"), ("ssd", "backward"))]
     assert len(nested) == 5 * 2 * cfg.num_layers
     assert all(ev["args"]["parent"] in back for ev in nested)
+    # every phase of every block's scan on the card's kernels
+    ssd = [ev for ev in evs if ev["name"] == "ssd"]
+    assert len(ssd) == 5 * 3 * cfg.num_layers
+    assert {ev["args"]["path"] for ev in ssd} == {"kernel"}
