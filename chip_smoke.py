@@ -128,7 +128,8 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    slice 3 — ``ops.attention_op`` and ``ops.ssd_scan_op`` (three
    launches a call: chunk states, the scan over chunks, the chunk scan)
    at the widths of the repo's configs (llama3.2-1b causal 4096,
-   hymba-1.5b window 2048 over 8192, a mixtral prefill continuation,
+   hymba-1.5b's heads with a window of 2048 over 8192, a mixtral
+   prefill continuation,
    pixtral-12b's head width 160 causal at 4096, mamba2-1.3b's SSD at
    4096), driven likewise with the counters set to
    0 just before, each output against its plain version and a float64
@@ -150,10 +151,11 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    tokens of a batch of 2 and 4 decode steps, logits and caches equal
    (1e-4 at float32 with TF32 off; 5e-2 at bfloat16, 1 % of the
    elements allowed up to twice it; the MoE archs take the CPU's routes,
-   every token routed apart a near-tie; mixtral's and hymba's window of
-   32 wraps); (b) at full width, llama3.2-1b, mamba2-1.3b and
-   seamless-m4t-medium at full depth, hymba-1.5b at full depth with a
-   prompt of 2560 (its ring of 2048 wraps), mixtral-8x7b and
+   every token routed apart a near-tie; mixtral's window of 32 wraps,
+   and hymba's ring of 16 after its 4 meta tokens' slots); (b) at full
+   width, llama3.2-1b, mamba2-1.3b and seamless-m4t-medium at full
+   depth, hymba-1.5b at full depth with a prompt of 1536 (its ring of
+   1024 after the 128 meta tokens wraps), mixtral-8x7b and
    pixtral-12b cut to 2 layers (mixtral's prompt one window, 4096, so
    its ring wraps at the decode step; the MoE dropless, as
    ``reduced_model``; pixtral's prompt 1024 patches + 512 tokens; the
@@ -1936,7 +1938,7 @@ LM_NEAR_TIE = 2e-2
 #: kept or None for full depth, prompt tokens)
 LM_FULL = (("llama3.2-1b", None, 512), ("mamba2-1.3b", None, 512),
            ("seamless-m4t-medium", None, 512),
-           ("hymba-1.5b", None, 2048 + 512),     # window + 512: the ring wraps
+           ("hymba-1.5b", None, 1024 + 512),     # window + 512: the ring wraps
            # 2 of 32 layers; a prompt of one window: a sliding-window cache
            # holds min(prompt, window) slots and no headroom (the
            # reference's cache_slots), so after a shorter prompt the first
@@ -1944,7 +1946,7 @@ LM_FULL = (("llama3.2-1b", None, 512), ("mamba2-1.3b", None, 512),
            ("mixtral-8x7b", 2, 4096),
            ("pixtral-12b", 2, 1024 + 512))       # 2 of 40; 1024 patches
 #: one attention block over the whole prompt (the configs' 2048 divides
-#: none of 2560, 4096 + 1 and 2561)
+#: none of hymba's 128 + 1536 and 128 + 1537, 4096 + 1 and 2561)
 LM_BLOCK = 8192
 #: phase 6 (c): python -m repro_torch.launch.serve at full width
 LM_SERVE = ["--arch", "llama3.2-1b", "--requests", "16", "--slots", "4",
@@ -2321,10 +2323,12 @@ def ssd_parts(since=None) -> dict:
 
 def ssd_step_launches(cfg, par) -> dict:
     """The SSD's launches a train step on the card by part: every SSM
-    or hybrid layer runs the forward's parts once, twice with its block
-    recomputed (``remat="block"``), and the backward's once."""
+    layer, and every hybrid one with Mamba-2 heads, runs the forward's
+    parts once, twice with its block recomputed (``remat="block"``), and
+    the backward's once (hymba's Mamba-1 scan is plain torch)."""
     from repro_torch.kernels import ssd_scan as ss
-    L = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    L = cfg.num_layers if cfg.family == "ssm" or (
+        cfg.family == "hybrid" and cfg.ssm_kind == "mamba2") else 0
     fwd = L * (2 if par.remat == "block" else 1)
     return {**dict.fromkeys(ss.TRAIN_PARTS, fwd),
             **dict.fromkeys(ss.BWD_PARTS, L)}
@@ -2591,8 +2595,7 @@ def run_train_reduced(device, seed, log=print) -> dict:
     norm, the first batch's gradients and every updated param within
     1e-4 (params as ``_train_close`` says); on the card, each step's
     launches of the SSD's parts (``ssd_step_launches``: 2 L forward and L
-    backward for mamba2's recomputed blocks, L and L for hymba's, none
-    elsewhere)."""
+    backward for mamba2's recomputed blocks, none elsewhere)."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, DataPipeline
     from repro_torch.models import model_zoo as zoo

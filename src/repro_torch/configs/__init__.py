@@ -96,6 +96,17 @@ def reduced_model(cfg: ModelConfig) -> ModelConfig:
         kw.update(encoder_layers=2)
     if cfg.frontend_len:
         kw.update(frontend_len=8)
+    if cfg.ssm_kind == "mamba1":
+        kw.update(ssm_dt_rank=4, ssm_chunk=4)
+    if cfg.v_head_dim:
+        kw.update(v_head_dim=cfg.v_head_dim * 16 // cfg.head_dim)
+    if cfg.meta_tokens or cfg.per_layer_attention:
+        # hymba's block at CPU size: a few meta tokens, a window under the
+        # tests' sequences, the first and last layer global, a sharing pair
+        kw.update(num_layers=4, meta_tokens=4 if cfg.meta_tokens else 0,
+                  sliding_window=16 if cfg.sliding_window else 0,
+                  global_layers=(0, 3) if cfg.global_layers else (),
+                  kv_groups=((1, 2),) if cfg.kv_groups else ())
     return cfg.replace(**kw)
 
 

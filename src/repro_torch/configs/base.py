@@ -64,9 +64,65 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 
+    # --- hybrid head block (hymba-1.5b as published); the defaults keep
+    # every other arch, and the reference's hybrid stand-in, as they are ---
+    meta_tokens: int = 0             # learned rows prepended to every sequence
+    global_layers: Tuple[int, ...] = ()  # full attention; the window elsewhere
+    kv_groups: Tuple[Tuple[int, ...], ...] = ()  # layers reusing the first's K/V
+    v_head_dim: int = 0              # value head width (0 => head_dim)
+    ssm_kind: str = "mamba2"         # mamba2 (SSD heads) | mamba1 (selective
+    #                                  scan: dt rank, dt/B/C norms, conv bias)
+    ssm_dt_rank: int = 0             # mamba1: dt's low-rank width
+    hybrid_merge: str = "per_path"   # per_path: each path projected to d_model
+    #                                  and normed; out_proj: both d_inner-wide
+    #                                  paths normed, averaged, one projection
+
+    def __post_init__(self):
+        # lists (a JSON override) as tuples, so the config stays hashable
+        object.__setattr__(self, "global_layers",
+                           tuple(int(l) for l in self.global_layers))
+        object.__setattr__(self, "kv_groups", tuple(
+            tuple(int(l) for l in g) for g in self.kv_groups))
+        if self.ssm_kind not in ("mamba2", "mamba1"):
+            raise ValueError(f"ssm_kind {self.ssm_kind!r}")
+        if self.hybrid_merge not in ("per_path", "out_proj"):
+            raise ValueError(f"hybrid_merge {self.hybrid_merge!r}")
+        for g in self.kv_groups:
+            if len({l in self.global_layers for l in g}) != 1:
+                raise ValueError(f"K/V group {g} mixes global and windowed "
+                                 f"layers")
+
     @property
     def attention_free(self) -> bool:
         return self.family == "ssm"
+
+    @property
+    def value_dim(self) -> int:
+        return self.v_head_dim or self.head_dim
+
+    @property
+    def per_layer_attention(self) -> bool:
+        """Whether attention differs by layer (global layers, shared K/V):
+        K/V weights and caches are then stacked over producing layers."""
+        return bool(self.global_layers or self.kv_groups)
+
+    def layer_window(self, layer: int) -> int:
+        """The attention window of ``layer`` (0: full causal)."""
+        return 0 if layer in self.global_layers else self.sliding_window
+
+    def kv_source(self, layer: int) -> int:
+        """The layer whose K/V ``layer`` attends with (itself, or the
+        first layer of its sharing group)."""
+        for g in self.kv_groups:
+            if layer in g:
+                return g[0]
+        return layer
+
+    @property
+    def kv_producers(self) -> Tuple[int, ...]:
+        """The layers that make K/V, in order."""
+        return tuple(l for l in range(self.num_layers)
+                     if self.kv_source(l) == l)
 
     @property
     def is_encdec(self) -> bool:

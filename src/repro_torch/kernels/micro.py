@@ -152,7 +152,9 @@ CARD = (
     Workload("attn_hymba1.5b_swa_8192", "flash_attention",
              dict(B=1, H=25, KV=5, Sq=8192, Skv=8192, hd=64, window=2048,
                   dtype="bfloat16"),
-             "configs/hymba_1_5b.py: sliding window 2048, G = 5"),
+             "hymba-1.5b's heads (configs/hymba_1_5b.py, G = 5) with a "
+             "window-2048 shape: the published window is 1024 with 128 "
+             "always-visible meta keys, which this kernel does not take"),
     Workload("attn_mixtral_prefill_cont", "flash_attention",
              dict(B=1, H=32, KV=8, Sq=512, Skv=4096, hd=128, window=4096,
                   q_offset=3584, dtype="bfloat16"),

@@ -7,12 +7,12 @@ The train step (``models.steps.make_train_step``) opens one root span a
 call, ``train_step``, with :func:`step`; inside it the program opens
 :func:`span` and :func:`phased` spans at its layer boundaries
 (``forward``, ``backward``, ``optimizer``, ``block``, ``ssd``,
-``attention``), and :func:`bracketed` brackets one call's backward
-between two identity ``autograd.Function`` markers: the marker on the
-call's outputs opens the span ``<name>`` of phase ``backward`` when the
-backward reaches it, the marker on its inputs closes it. The engine runs
-nodes by sequence number, so the two bracket the call's own backward
-nodes.
+``selective_scan``, ``attention``), and :func:`bracketed` brackets one
+call's backward between two identity ``autograd.Function`` markers: the
+marker on the call's outputs opens the span ``<name>`` of phase
+``backward`` when the backward reaches it, the marker on its inputs
+closes it. The engine runs nodes by sequence number, so the two bracket
+the call's own backward nodes.
 
 On and off. A step is traced while an ``Obs`` is activated
 (:func:`activate`) or a ``torch.profiler`` session is active when the step
@@ -46,7 +46,8 @@ tracer's ``wall_epoch_ns`` converts both to the profiler's clock) and
 one observation in each of the histograms ``train.<key>.device_ms`` and
 ``train.<key>.host_ms`` of its metrics registry, where ``<key>`` is the
 span's name and, for a span with a phase, also ``<name>/<phase>``.
-:func:`collected` sums those histograms a key.
+:func:`collected` sums those histograms a key. :func:`count` raises a
+counter ``train.<name>`` of the same registry in a traced forward.
 """
 from __future__ import annotations
 
@@ -231,6 +232,16 @@ def phased(name: str, **args):
         return _NULL
     args["phase"] = "recompute" if st.in_backward() else "forward"
     return _Span(st, name, args)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Raise the counter ``train.<name>`` of the traced step's bundle by
+    ``n`` in the forward (a block that remat runs again under the step's
+    ``backward`` counts nothing); a no-op outside a traced step."""
+    st = COLLECTOR.current
+    if st is None or st.in_backward():
+        return
+    st.obs.metrics.counter(PREFIX + name).inc(n)
 
 
 class _Box:

@@ -74,14 +74,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
-                window: int) -> torch.Tensor:
-    """[Qb, Kb] bool valid mask from absolute positions."""
+                window: int, meta: int = 0) -> torch.Tensor:
+    """[Qb, Kb] bool valid mask from absolute positions; the first
+    ``meta`` keys stay visible outside the window."""
     m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
                    device=q_pos.device)
     if causal:
         m &= q_pos[:, None] >= k_pos[None, :]
     if window:
-        m &= q_pos[:, None] - k_pos[None, :] < window
+        m &= (q_pos[:, None] - k_pos[None, :] < window) | \
+            (k_pos[None, :] < meta)
     return m
 
 
@@ -89,12 +91,15 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_block: int = 1024, kv_block: int = 1024,
                         q_offset: int = 0, swa_block_skip: bool = False,
-                        repeat_kv: bool = False) -> torch.Tensor:
+                        repeat_kv: bool = False,
+                        meta: int = 0) -> torch.Tensor:
     """Online-softmax attention, chunked over Q and KV blocks.
 
-    q: [B, Sq, H, hd]; k, v: [B, Skv, KV, hd] with H = KV * G (GQA).
-    Returns [B, Sq, H, hd]. All softmax state in f32.
+    q, k: [B, Sq|Skv, H|KV, hd]; v: [B, Skv, KV, vd] with H = KV * G
+    (GQA). Returns [B, Sq, H, vd]. All softmax state in f32.
     ``q_offset``: absolute position of q[0] (prefill continuation).
+    ``meta``: the first keys that every query sees, its window aside
+    (hymba's meta tokens).
 
     ``swa_block_skip``: with a sliding window, each query block only
     attends to the last ``window + q_block`` keys — slice that range per
@@ -104,6 +109,7 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
+    vd = v.shape[-1]
     G = H // KV
     if repeat_kv and G > 1:
         k = k.repeat_interleave(G, dim=2)
@@ -119,7 +125,7 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / np.sqrt(hd)
     dev = q.device
 
-    skip = bool(swa_block_skip and window and causal and
+    skip = bool(swa_block_skip and window and causal and not meta and
                 window + q_block < Skv)
     if skip:
         span = int(np.ceil((window + q_block) / kv_block)) * kv_block
@@ -141,14 +147,14 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=dev)
         l = torch.zeros((B, KV, G, q_block), dtype=torch.float32,
                         device=dev)
-        acc = torch.zeros((B, KV, G, q_block, hd), dtype=torch.float32,
+        acc = torch.zeros((B, KV, G, q_block, vd), dtype=torch.float32,
                           device=dev)
         for ki in range(nk_eff):
             lo = pos0 + ki * kv_block
             k_tile, v_tile = kf[:, lo:lo + kv_block], vf[:, lo:lo + kv_block]
             k_pos = lo + torch.arange(kv_block, device=dev)
             s = torch.einsum("bqkgh,bckh->bkgqc", q_tile, k_tile) * scale
-            mask = _block_mask(q_pos, k_pos, causal, window)
+            mask = _block_mask(q_pos, k_pos, causal, window, meta)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             # guard fully-masked blocks: exp(NEG_INF - NEG_INF) would be 1
@@ -158,8 +164,8 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * corr[..., None] + torch.einsum("bkgqc,bckh->bkgqh",
                                                        p, v_tile)
             m = m_new
-        o = acc / torch.clamp(l, min=1e-30)[..., None]    # [B,KV,G,Qb,hd]
-        out.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, hd)
+        o = acc / torch.clamp(l, min=1e-30)[..., None]    # [B,KV,G,Qb,vd]
+        out.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, vd)
                    .to(q.dtype))
     out = out[0] if nq == 1 else torch.cat(out, dim=1)
     # the merge of (KV, G) into H splits the gradient back in the backward
@@ -168,21 +174,22 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0, meta: int = 0) -> torch.Tensor:
     """Quadratic reference (small shapes only) — oracle for tests. A row
     with no visible key gets the mean of v, as the reference's does."""
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
+    vd = v.shape[-1]
     G = H // KV
     qr = q.reshape(B, Sq, KV, G, hd).float()
     s = torch.einsum("bqkgh,bckh->bkgqc", qr, k.float()) / math.sqrt(hd)
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     k_pos = torch.arange(Skv, device=q.device)
-    mask = _block_mask(q_pos, k_pos, causal, window)
+    mask = _block_mask(q_pos, k_pos, causal, window, meta)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return out.reshape(B, Sq, H, vd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -191,35 +198,44 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_positions: torch.Tensor,
-                     pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
-    """q: [B, 1, H, hd]; caches: [B, S, KV, hd];
+                     pos: torch.Tensor, *, window: int = 0,
+                     meta: int = 0) -> torch.Tensor:
+    """q: [B, 1, H, hd]; caches: [B, S, KV, hd|vd];
     cache_positions: [B, S] integer absolute token position per slot (-1 =
     empty); pos: [B] per-sequence current position. Works for both full
     caches (slot i holds position i) and ring buffers (slot = pos %
-    window)."""
+    window; with ``meta`` always-visible leading positions, those in the
+    first slots and the ring after them)."""
     B, _, H, hd = q.shape
     _, S, KV, _ = k_cache.shape
+    vd = v_cache.shape[-1]
     G = H // KV
     qr = whole_unless_divides(q, 2, KV).reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qr, k_cache.float()) / math.sqrt(hd)
     valid = (cache_positions >= 0) & (cache_positions <= pos[:, None])
     if window:
-        valid &= cache_positions > (pos[:, None] - window)
+        valid &= (cache_positions > (pos[:, None] - window)) | \
+            (cache_positions < meta)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    return out.reshape(B, 1, H, vd).to(q.dtype)
 
 
 def cache_update(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  cache_positions: torch.Tensor, k_new: torch.Tensor,
-                 v_new: torch.Tensor, pos: torch.Tensor, *, window: int = 0):
+                 v_new: torch.Tensor, pos: torch.Tensor, *, window: int = 0,
+                 meta: int = 0):
     """Insert one token's K/V per sequence at that sequence's slot.
-    pos: [B]. Full cache: slot = pos. Ring (SWA): slot = pos % window.
-    Returns new tensors; the inputs are not modified (the reference's
-    functional update)."""
+    pos: [B]. Full cache: slot = pos. Ring (SWA): slot = pos % window;
+    after ``meta`` leading slots (the positions below ``meta``), slot =
+    meta + (pos - meta) % window. Returns new tensors; the inputs are
+    not modified (the reference's functional update)."""
     B, S = k_cache.shape[:2]
-    slot = (pos % window) if window else pos
+    if window and meta:
+        slot = torch.where(pos < meta, pos, meta + (pos - meta) % window)
+    else:
+        slot = (pos % window) if window else pos
     slot = torch.clamp(slot.long(), 0, S - 1)
     if isinstance(k_cache, DTensor):
         # on a mesh DTensor has no in-place index_put for a cache split

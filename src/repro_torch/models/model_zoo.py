@@ -52,15 +52,27 @@ def _attn_template(cfg: ModelConfig, L: int, prefix_dims=()) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lay = ("layers",) + tuple(None for _ in prefix_dims[1:])
     pd = (L,) + tuple(prefix_dims[1:])
+    t = {"wq": P(pd + (D, H, hd), lay + ("embed", "heads", "head_dim"),
+                 "fanin", fan_in=D)}
+    if not cfg.per_layer_attention:
+        t.update(_kv_template(cfg, L))
+    if cfg.hybrid_merge == "per_path":
+        t["wo"] = P(pd + (H, hd, D), lay + ("heads", "head_dim", "embed"),
+                    "fanin", fan_in=H * hd)
+    return t
+
+
+def _kv_template(cfg: ModelConfig, n: int) -> dict:
+    """K and V projections of ``n`` layers (every layer, or with
+    per-layer attention the producing layers alone, stacked)."""
+    D, KV = cfg.d_model, cfg.num_kv_heads
     return {
-        "wq": P(pd + (D, H, hd), lay + ("embed", "heads", "head_dim"),
-                "fanin", fan_in=D),
-        "wk": P(pd + (D, KV, hd), lay + ("embed", "kv_heads", "head_dim"),
-                "fanin", fan_in=D),
-        "wv": P(pd + (D, KV, hd), lay + ("embed", "kv_heads", "head_dim"),
-                "fanin", fan_in=D),
-        "wo": P(pd + (H, hd, D), lay + ("heads", "head_dim", "embed"),
-                "fanin", fan_in=H * hd),
+        "wk": P((n, D, KV, cfg.head_dim),
+                ("layers", "embed", "kv_heads", "head_dim"), "fanin",
+                fan_in=D),
+        "wv": P((n, D, KV, cfg.value_dim),
+                ("layers", "embed", "kv_heads", "head_dim"), "fanin",
+                fan_in=D),
     }
 
 
@@ -110,6 +122,32 @@ def _ssm_template(cfg: ModelConfig, L: int) -> dict:
     }
 
 
+def _mamba1_template(cfg: ModelConfig, L: int) -> dict:
+    """Mamba-1's mixer as hymba publishes it: x and z projections, a
+    depthwise conv with bias, x_proj to dt's rank, B and C, RMS norms on
+    the three, dt_proj, A per (channel, state), D per channel."""
+    D, di, N, K, R = (cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv,
+                      cfg.ssm_dt_rank)
+    return {
+        "w_x": P((L, D, di), ("layers", "embed", "ssm_dim"), "fanin",
+                 fan_in=D),
+        "w_z": P((L, D, di), ("layers", "embed", "ssm_dim"), "fanin",
+                 fan_in=D),
+        "conv_x": P((L, K, di), ("layers", "conv", "ssm_dim"), "normal"),
+        "conv_bias": P((L, di), ("layers", "ssm_dim"), "zeros"),
+        "x_proj": P((L, di, R + 2 * N), ("layers", "ssm_dim", None),
+                    "fanin", fan_in=di),
+        "dt_norm": P((L, R), ("layers", None), "zeros"),
+        "B_norm": P((L, N), ("layers", "ssm_state"), "zeros"),
+        "C_norm": P((L, N), ("layers", "ssm_state"), "zeros"),
+        "w_dt": P((L, R, di), ("layers", None, "ssm_dim"), "fanin",
+                  fan_in=R),
+        "dt_bias": P((L, di), ("layers", "ssm_dim"), "ssm_dt"),
+        "A_log": P((L, di, N), ("layers", "ssm_dim", "ssm_state"), "ssm_a"),
+        "D_skip": P((L, di), ("layers", "ssm_dim"), "ones"),
+    }
+
+
 def block_template(cfg: ModelConfig, L: Optional[int] = None) -> dict:
     L = cfg.num_layers if L is None else L
     D = cfg.d_model
@@ -124,9 +162,17 @@ def block_template(cfg: ModelConfig, L: Optional[int] = None) -> dict:
         t["ssm"] = _ssm_template(cfg, L)
     elif fam == "hybrid":
         t["attn"] = _attn_template(cfg, L, (L,))
-        t["ssm"] = _ssm_template(cfg, L)
-        t["attn_scale"] = P((L, D), ("layers", None), "zeros")
-        t["ssm_scale"] = P((L, D), ("layers", None), "zeros")
+        t["ssm"] = (_mamba1_template(cfg, L) if cfg.ssm_kind == "mamba1"
+                    else _ssm_template(cfg, L))
+        if cfg.hybrid_merge == "out_proj":
+            di = cfg.d_inner
+            t["attn_norm"] = P((L, di), ("layers", "ssm_dim"), "zeros")
+            t["ssm_norm"] = P((L, di), ("layers", "ssm_dim"), "zeros")
+            t["w_out"] = P((L, di, D), ("layers", "ssm_dim", "embed"),
+                           "fanin", fan_in=di)
+        else:
+            t["attn_scale"] = P((L, D), ("layers", None), "zeros")
+            t["ssm_scale"] = P((L, D), ("layers", None), "zeros")
         t["ln2"] = P((L, D), ("layers", None), "zeros")
         t["ffn"] = _ffn_template(cfg, L)
     else:
@@ -175,6 +221,10 @@ def param_template(cfg: ModelConfig) -> dict:
         t["blocks"] = encdec_block_template(cfg)
     else:
         t["blocks"] = block_template(cfg)
+        if cfg.per_layer_attention:
+            t["kv"] = _kv_template(cfg, len(cfg.kv_producers))
+        if cfg.meta_tokens:
+            t["meta"] = P((cfg.meta_tokens, D), (None, "embed"), "embed")
         if cfg.family == "vlm":
             t["patch_adapter"] = P((D, D), ("embed", None), "fanin")
     if not cfg.tie_embeddings:
@@ -244,27 +294,47 @@ def _heads_proj(x, w, dtype):
 
 
 def _attn_forward(lp, x, positions, cfg: ModelConfig, rules: Rules, par,
-                  *, causal=True, window=0, kv_override=None):
-    """Full-sequence attention (train/prefill). Returns (out, (k, v))."""
+                  *, causal=True, window=0, kv_override=None,
+                  kv_shared=None, bracket=None):
+    """Full-sequence attention (train/prefill). Returns (out, (k, v)).
+    ``kv_shared``: the (roped) k, v of the layer this one reuses them
+    from. Without ``wo`` (hymba's merge) the heads' values come out side
+    by side, [B,S,H*vd]. ``bracket(fn, q, k, v)``, if given, runs what
+    follows the projections (RoPE, the attention, ``wo``): the span
+    ``attention`` takes it, so that each of its inputs has one use and
+    a traced backward sums every gradient as an untraced one does."""
     dtype = x.dtype
     q = _heads_proj(x, lp["wq"], dtype)
-    if kv_override is None:
+    rope_k = kv_shared is None and kv_override is None
+    if kv_shared is not None:
+        k, v = kv_shared
+    elif kv_override is None:
         k = _heads_proj(x, lp["wk"], dtype)
         v = _heads_proj(x, lp["wv"], dtype)
-        k = apply_rope(k, positions, cfg.rope_theta)
     else:  # cross-attention: kv computed from encoder output
         enc = kv_override
         k = _heads_proj(enc, lp["wk"], dtype)
         v = _heads_proj(enc, lp["wv"], dtype)
-    q = apply_rope(q, positions, cfg.rope_theta) if kv_override is None else q
-    q = rules.constrain(q, "batch", "seq", "heads", "head_dim")
-    k = rules.constrain(k, "batch", "seq", "kv_heads", "head_dim")
-    out = flash_attention_xla(
-        q, k, v, causal=causal, window=window,
-        q_block=par.attn_q_block, kv_block=par.attn_kv_block,
-        swa_block_skip=par.swa_block_skip, repeat_kv=par.attn_repeat_kv)
-    out = torch.einsum("bshk,hkd->bsd", out, lp["wo"].to(dtype))
-    return out, (k, v)
+
+    def attend(q, k, v):
+        if rope_k:
+            k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_override is None:
+            q = apply_rope(q, positions, cfg.rope_theta)
+        q = rules.constrain(q, "batch", "seq", "heads", "head_dim")
+        k = rules.constrain(k, "batch", "seq", "kv_heads", "head_dim")
+        out = flash_attention_xla(
+            q, k, v, causal=causal, window=window,
+            q_block=par.attn_q_block, kv_block=par.attn_kv_block,
+            swa_block_skip=par.swa_block_skip, repeat_kv=par.attn_repeat_kv,
+            meta=cfg.meta_tokens)
+        if "wo" in lp:
+            out = torch.einsum("bshk,hkd->bsd", out, lp["wo"].to(dtype))
+        else:
+            out = out.flatten(2)
+        return out, (k, v)
+
+    return attend(q, k, v) if bracket is None else bracket(attend, q, k, v)
 
 
 def _ffn_forward(lp, x, cfg, rules):
@@ -272,8 +342,8 @@ def _ffn_forward(lp, x, cfg, rules):
 
 
 def _ssm_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
-                 ssd_state=None, decode=False):
-    """Full mamba2 mixer. x: [B,S,D]. Returns (y, (conv_state, ssd_state))."""
+                 ssm_state=None, decode=False):
+    """Full mamba2 mixer. x: [B,S,D]. Returns (y, (conv_state, ssm_state))."""
     dtype = x.dtype
     B_, S, D = x.shape
     H, Pd, N, G = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_groups
@@ -305,7 +375,7 @@ def _ssm_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
 
     if decode:
         y, new_state = ssm_lib.ssd_decode_step(
-            ssd_state, xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0])
+            ssm_state, xh[:, 0], dt[:, 0], A, Bh[:, 0], Ch[:, 0])
         y = y[:, None]
     else:
         # the "ssd" span, its backward bracketed (a traced train step);
@@ -313,7 +383,7 @@ def _ssm_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
         y, new_state = spans.bracketed(
             "ssd", ssm_lib.ssd_chunked, xh, dt, A, Bh, Ch,
             span_args={"path": ssm_lib.ssd_path(xh)},
-            chunk=min(cfg.ssm_chunk, S), initial_state=ssd_state)
+            chunk=min(cfg.ssm_chunk, S), initial_state=ssm_state)
     y = y + xh * lp["D_skip"].float()[None, None, :, None].to(dtype)
     # (and the heads merged back: the gradient split the same way)
     y = grad_whole_unless_divides(y, 2, H).reshape(B_, S, cfg.d_inner)
@@ -323,27 +393,98 @@ def _ssm_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
     return y, (new_conv.to(x.dtype), new_state)
 
 
-def _self_attn_decode(lp, h, positions, cfg, cache_in, window=0):
+def _mamba1_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
+                    ssm_state=None, decode=False):
+    """Mamba-1's mixer (hymba's SSM heads), before any output projection:
+    u = silu(conv(x W_x) + b), [dt, B, C] = u W_xproj each RMS-normed,
+    dt = softplus(dt W_dt + b_dt), the selective scan with D u, gated by
+    silu(x W_z). x: [B,S,D]. Returns (m [B,S,d_inner], (conv_state,
+    ssm_state))."""
+    dtype = x.dtype
+    R, N, eps = cfg.ssm_dt_rank, cfg.ssm_state, cfg.norm_eps
+    xin = torch.einsum("bsd,de->bse", x, lp["w_x"].to(dtype))
+    z = torch.einsum("bsd,de->bse", x, lp["w_z"].to(dtype))
+    u, new_conv = ssm_lib.causal_conv(xin, lp["conv_x"], conv_state)
+    u = F.silu(u + lp["conv_bias"].to(dtype))
+    dbc = torch.einsum("bse,ef->bsf", u, lp["x_proj"].to(dtype))
+    d_low, Bm, Cm = dbc.split([R, N, N], dim=-1)
+    d_low = rms_norm(d_low, lp["dt_norm"], eps)
+    Bm, Cm = rms_norm(Bm, lp["B_norm"], eps), rms_norm(Cm, lp["C_norm"], eps)
+    dt = torch.einsum("bsr,re->bse", d_low, lp["w_dt"].to(dtype))
+    dt = F.softplus(dt.float() + lp["dt_bias"].float())
+    A = -torch.exp(lp["A_log"].float())
+    if decode:
+        y, new_state = ssm_lib.selective_scan_step(
+            ssm_state, u[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+        y = y[:, None]
+    else:
+        # the "selective_scan" span, its backward bracketed
+        y, new_state = spans.bracketed(
+            "selective_scan", ssm_lib.selective_scan, u, dt, A, Bm, Cm,
+            span_args={"path": "plain"}, chunk=cfg.ssm_chunk,
+            initial_state=ssm_state)
+    y = (y + u.float() * lp["D_skip"].float()).to(dtype)
+    return y * F.silu(z.float()).to(dtype), (new_conv.to(dtype), new_state)
+
+
+def _self_attn_decode(lp, h, positions, cfg, cache_in, window=0,
+                      kv_shared=None):
     """One token's self-attention against the cache. Returns (out,
-    cache_out)."""
+    cache_out). ``kv_shared``: the producing layer's cache after this
+    token's update (the layer keeps none of its own, and returns
+    ``{}``)."""
     dtype = h.dtype
+    M = cfg.meta_tokens
     q = _heads_proj(h, lp["wq"], dtype)
-    k = _heads_proj(h, lp["wk"], dtype)
-    v = _heads_proj(h, lp["wv"], dtype)
     pos = positions[:, 0]                              # [B] per-slot position
     q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    kc, vc, cpos = cache_update(cache_in["k"], cache_in["v"],
-                                cache_in["cpos"], k, v, pos, window=window)
-    att = decode_attention(q, kc, vc, cpos, pos, window=window)
-    out = torch.einsum("bshk,hkd->bsd", att, lp["wo"].to(dtype))
-    return out, {"k": kc, "v": vc, "cpos": cpos}
+    if kv_shared is None:
+        k = _heads_proj(h, lp["wk"], dtype)
+        v = _heads_proj(h, lp["wv"], dtype)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        kc, vc, cpos = cache_update(cache_in["k"], cache_in["v"],
+                                    cache_in["cpos"], k, v, pos,
+                                    window=window, meta=M)
+        cache_out = {"k": kc, "v": vc, "cpos": cpos}
+    else:
+        kc, vc, cpos = kv_shared["k"], kv_shared["v"], kv_shared["cpos"]
+        cache_out = {}
+    att = decode_attention(q, kc, vc, cpos, pos, window=window, meta=M)
+    if "wo" in lp:
+        out = torch.einsum("bshk,hkd->bsd", att, lp["wo"].to(dtype))
+    else:
+        out = att.flatten(2)
+    return out, cache_out
 
 
-def _prefill_cache(k, v, like: dict) -> dict:
+def _prefill_meta_ring(k, v, like: dict, meta: int, window: int) -> dict:
+    """:func:`_prefill_cache` of a ring after ``meta`` leading slots: the
+    first ``meta`` positions in those, the last ``window`` of the rest at
+    slot meta + (p - meta) % window."""
+    B, S = k.shape[:2]
+    dev = k.device
+    slots = like["k"].shape[1]
+    pos = torch.arange(S, device=dev)
+    keep = pos[(pos < meta) | (pos >= max(meta, S - window))]
+    slot = torch.where(keep < meta, keep, meta + (keep - meta) % window)
+    kk = torch.zeros((B, slots) + k.shape[2:], dtype=like["k"].dtype,
+                     device=dev)
+    vv = torch.zeros((B, slots) + v.shape[2:], dtype=like["v"].dtype,
+                     device=dev)
+    cpos = torch.full((B, slots), -1, dtype=torch.int32, device=dev)
+    kk[:, slot] = k[:, keep].to(kk.dtype)
+    vv[:, slot] = v[:, keep].to(vv.dtype)
+    cpos[:, slot] = keep.to(torch.int32)
+    return {"k": kk, "v": vv, "cpos": cpos}
+
+
+def _prefill_cache(k, v, like: dict, meta: int = 0, window: int = 0) -> dict:
     """Prefill: the cache lines of k, v [B,S,KV,hd] — the last slots'
     tokens of a ring (SWA) cache, or every token and empty headroom slots
-    of a full one — in the dtypes of ``like``'s lines."""
+    of a full one — in the dtypes of ``like``'s lines. With ``meta``
+    leading positions and a ``window``, the ring after them."""
+    if meta and window:
+        return _prefill_meta_ring(k, v, like, meta, window)
     S_slots = like["k"].shape[1]
     B, S = k.shape[:2]
     dev = k.device
@@ -381,19 +522,38 @@ def _block_input(x, w, cfg, rules):
 
 
 def _decoder_block(lp, x, positions, cfg, rules, par, cache_in=None,
-                   decode=False, layer=None):
-    """One block. Returns (x, cache_out, aux). In a traced train step the
-    body is the span "block" (arg ``layer``; phase ``forward``, or
-    ``recompute`` when remat runs it again in the backward)."""
+                   decode=False, layer=None, kv_shared=None):
+    """One block. Returns (x, cache_out, aux, kv): ``kv`` the layer's
+    attention K/V (the (k, v) tensors a later layer may reuse; in decode
+    its updated cache lines), None without attention. ``kv_shared``: the
+    producing layer's, for a layer that reuses them. In a traced train
+    step the body is the span "block" (arg ``layer``; phase ``forward``,
+    or ``recompute`` when remat runs it again in the backward)."""
     with spans.phased("block", layer=layer):
         return _decoder_block_body(lp, x, positions, cfg, rules, par,
-                                   cache_in, decode)
+                                   cache_in, decode, layer, kv_shared)
+
+
+def _attention(lp, h, positions, cfg, rules, par, window, kv_shared):
+    """A block's full-sequence self-attention, the part after the
+    projections as the span "attention" (args ``window``: global or
+    sliding, ``kv``: own or shared), its backward bracketed. Returns
+    (out, (k, v))."""
+    if kv_shared is not None:
+        spans.count("kv_shared_layers")
+    args = {"window": "sliding" if window else "global",
+            "kv": "own" if kv_shared is None else "shared"}
+    return _attn_forward(
+        lp, h, positions, cfg, rules, par, causal=True, window=window,
+        kv_shared=kv_shared,
+        bracket=lambda fn, *qkv: spans.bracketed("attention", fn, *qkv,
+                                                 span_args=args))
 
 
 def _decoder_block_body(lp, x, positions, cfg, rules, par, cache_in,
-                        decode):
+                        decode, layer=None, kv_shared=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    window = cfg.sliding_window
+    window = cfg.layer_window(layer)
     cache_out = {}
     h = _block_input(x, lp["ln1"], cfg, rules)
 
@@ -401,33 +561,40 @@ def _decoder_block_body(lp, x, positions, cfg, rules, par, cache_in,
         y, (conv_s, ssd_s) = _ssm_forward(
             lp["ssm"], h, cfg, rules,
             conv_state=None if cache_in is None else cache_in["conv"],
-            ssd_state=None if cache_in is None else cache_in["state"],
+            ssm_state=None if cache_in is None else cache_in["state"],
             decode=decode)
         x = x + y
         cache_out = {"conv": conv_s, "state": ssd_s}
         x = rules.constrain(x, "batch", "seq_sp", None)
-        return x, cache_out, aux
+        return x, cache_out, aux, None
 
     # --- attention path (dense / moe / vlm / hybrid) ---
     if decode:
         attn_out, cache_out = _self_attn_decode(lp["attn"], h, positions,
-                                                cfg, cache_in, window)
-        kv = None
+                                                cfg, cache_in, window,
+                                                kv_shared)
+        kv = cache_out or None
     else:
-        with spans.span("attention"):
-            attn_out, kv = _attn_forward(lp["attn"], h, positions, cfg,
-                                         rules, par, causal=True,
-                                         window=window)
+        attn_out, kv = _attention(lp["attn"], h, positions, cfg, rules, par,
+                                  window, kv_shared)
 
     if cfg.family == "hybrid":
-        y_ssm, (conv_s, ssd_s) = _ssm_forward(
+        mixer = _mamba1_forward if cfg.ssm_kind == "mamba1" else \
+            _ssm_forward
+        y_ssm, (conv_s, ssd_s) = mixer(
             lp["ssm"], h, cfg, rules,
             conv_state=None if cache_in is None else cache_in["conv"],
-            ssd_state=None if cache_in is None else cache_in["state"],
+            ssm_state=None if cache_in is None else cache_in["state"],
             decode=decode)
-        # parallel heads: average of per-path normalized outputs
-        y = 0.5 * (rms_norm(attn_out, lp["attn_scale"], cfg.norm_eps) +
-                   rms_norm(y_ssm, lp["ssm_scale"], cfg.norm_eps))
+        if cfg.hybrid_merge == "out_proj":
+            # hymba: both d_inner-wide paths normed, averaged, projected
+            y = 0.5 * (rms_norm(attn_out, lp["attn_norm"], cfg.norm_eps) +
+                       rms_norm(y_ssm, lp["ssm_norm"], cfg.norm_eps))
+            y = torch.einsum("bse,ed->bsd", y, lp["w_out"].to(y.dtype))
+        else:
+            # parallel heads: average of per-path normalized outputs
+            y = 0.5 * (rms_norm(attn_out, lp["attn_scale"], cfg.norm_eps) +
+                       rms_norm(y_ssm, lp["ssm_scale"], cfg.norm_eps))
         cache_out.update({"conv": conv_s, "state": ssd_s})
     else:
         y = attn_out
@@ -445,9 +612,10 @@ def _decoder_block_body(lp, x, positions, cfg, rules, par, cache_in,
     x = x + ff
     x = rules.constrain(x, "batch", "seq_sp", None)
 
-    if not decode and kv is not None and cache_in is not None:
-        cache_out.update(_prefill_cache(*kv, cache_in))
-    return x, cache_out, aux
+    if not decode and kv_shared is None and cache_in is not None:
+        cache_out.update(_prefill_cache(*kv, cache_in, cfg.meta_tokens,
+                                        window))
+    return x, cache_out, aux, kv
 
 
 def _remat(body, par: Parallelism):
@@ -461,22 +629,87 @@ def _remat(body, par: Parallelism):
     return body
 
 
+# the cache lines of the producing layers of each kind, by key suffix:
+# windowed (a ring, after the meta tokens' slots) and global (full)
+_KV_KINDS = (("", False), ("_global", True))
+
+
+def _layer_caches(cfg: ModelConfig, layers: dict) -> list:
+    """Per-layer cache trees of a cache whose attention lines are
+    stacked over the producing layers of each kind (per-layer attention):
+    a layer that reuses K/V gets none."""
+    n = cfg.num_layers
+    out = [{k: layers[k][l] for k in ("conv", "state") if k in layers}
+           for l in range(n)]
+    for suffix, glob in _KV_KINDS:
+        prods = [l for l in cfg.kv_producers
+                 if (l in cfg.global_layers) == glob]
+        for i, l in enumerate(prods):
+            out[l].update({k: layers[k + suffix][i]
+                           for k in ("k", "v", "cpos")})
+    return out
+
+
+def _stack_caches(cfg: ModelConfig, outs: list) -> dict:
+    """The inverse of :func:`_layer_caches`."""
+    stacked = _stack([{k: o[k] for k in ("conv", "state") if k in o}
+                      for o in outs])
+    for suffix, glob in _KV_KINDS:
+        prods = [l for l in cfg.kv_producers
+                 if (l in cfg.global_layers) == glob]
+        if prods and "k" in outs[prods[0]]:
+            for k in ("k", "v", "cpos"):
+                stacked[k + suffix] = torch.stack([outs[l][k]
+                                                   for l in prods])
+    return stacked
+
+
+def _with_kv(params, cfg: ModelConfig, layers: list) -> list:
+    """The per-layer trees with each producing layer's K and V weights
+    (stacked over the producers under ``params["kv"]``) in its ``attn``."""
+    if not cfg.per_layer_attention:
+        return layers
+    kv = _layers(params["kv"], len(cfg.kv_producers))
+    layers = list(layers)
+    for i, l in enumerate(cfg.kv_producers):
+        layers[l] = dict(layers[l], attn=dict(layers[l]["attn"], **kv[i]))
+    return layers
+
+
 def decoder_forward(params, cfg: ModelConfig, rules: Rules, par: Parallelism,
                     x, positions, cache=None, decode=False):
-    """x: [B,S,D] embedded input. Returns (hidden, new_layer_cache, aux)."""
+    """x: [B,S,D] embedded input. Returns (hidden, new_layer_cache, aux).
+    With meta tokens (outside decode, where the cache holds them) the
+    learned rows go before x, the positions run over both, and the
+    hidden states come back without them, after the final norm."""
     blocks = params["blocks"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    outs = []
+    M = cfg.meta_tokens if not decode else 0
+    if M:
+        B = x.shape[0]
+        x = torch.cat([params["meta"].to(x.dtype).expand(B, M, -1), x], 1)
+        positions = _positions(B, x.shape[1], x.device)
+    outs, kv_of = [], {}
     block = _remat(_decoder_block, par)
-    for l, lp in enumerate(_layers(blocks, cfg.num_layers)):
-        cache_l = None if cache is None else _layer(cache["layers"], l)
-        x, cache_out, a = block(
+    layers = _with_kv(params, cfg, _layers(blocks, cfg.num_layers))
+    caches = (None if cache is None else
+              _layer_caches(cfg, cache["layers"]) if cfg.per_layer_attention
+              else [_layer(cache["layers"], l)
+                    for l in range(cfg.num_layers)])
+    for l, lp in enumerate(layers):
+        src = cfg.kv_source(l)
+        x, cache_out, a, kv = block(
             lp, x, positions, cfg, rules, par,
-            cache_in=cache_l, decode=decode, layer=l)
+            cache_in=None if caches is None else caches[l], decode=decode,
+            layer=l, kv_shared=kv_of.get(src) if src != l else None)
+        if src == l and cfg.per_layer_attention:
+            kv_of[l] = kv
         aux = aux + a
         outs.append(cache_out)
     x = _block_input(x, params["final_norm"], cfg, rules)
-    return x, _stack(outs), aux
+    new_cache = (_stack_caches(cfg, outs) if cfg.per_layer_attention
+                 else _stack(outs))
+    return x[:, M:], new_cache, aux
 
 
 # ---------------------------------------------------------------------------

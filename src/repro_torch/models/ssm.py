@@ -219,3 +219,175 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
     y = sum(xp[:, k:k + S] * w[k].to(x.dtype) for k in range(K))
     new_state = xp[:, S:] if K > 1 else state
     return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective scan (hymba's SSM heads)
+# ---------------------------------------------------------------------------
+
+def _chunk_major(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x [B, T, ...] (T a multiple of c) as [c, T // c, B, ...]: the
+    position within a chunk outermost, so that every position's slab
+    over the chunks, rows and channels is one contiguous block."""
+    Bz, T = x.shape[:2]
+    return x.reshape(Bz, T // c, c, *x.shape[2:]).movedim(2, 0).movedim(
+        2, 1).contiguous()
+
+
+def _time_major(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_chunk_major`: [c, nc, B, ...] -> [B, T, ...]."""
+    c, nc, Bz = x.shape[:3]
+    return x.movedim(1, 2).movedim(0, 2).reshape(Bz, nc * c, *x.shape[3:])
+
+
+def _linear_scan(L: torch.Tensor, b: torch.Tensor,
+                 s0: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every state of s_t = exp(la_t) s_{t-1} + w_t from ``s0`` (zeros
+    when None), chunk-major (:func:`_chunk_major`): L = la, b = w
+    [c, nc, B, ...] with la <= 0, both consumed. Returns (s [c, nc, B,
+    ...], the last state).
+
+    Within each chunk the decays are accumulated as sums of la and the
+    chunk's states from zero made by log2(c) doubling passes over all
+    chunks at once (each position takes the window before it, decayed by
+    the exponent of its own window's sum: exp of a sum <= 0, never an
+    overflow); then the states entering the chunks are carried from one
+    chunk's end to the next, and each position adds its entering state
+    decayed by its sum from the chunk's start."""
+    c, nc = L.shape[:2]
+    spare = torch.empty_like(L) if c > 1 else None
+    k = 1
+    while k < c:
+        t = torch.exp(L[k:])
+        b[k:] += t.mul_(b[:-k])
+        del t
+        spare[:k] = L[:k]
+        torch.add(L[k:], L[:-k], out=spare[k:])
+        L, spare = spare, L
+        k *= 2
+    del spare
+    e_end, b_end = torch.exp(L[-1]), b[-1]
+    entering = torch.empty_like(b_end)
+    if s0 is None:
+        entering[0] = 0
+    else:
+        entering[0] = s0
+    for z in range(nc - 1):
+        torch.addcmul(b_end[z], e_end[z], entering[z], out=entering[z + 1])
+    last = torch.addcmul(b_end[-1], e_end[-1], entering[-1])
+    return b.add_(L.exp_().mul_(entering)), last
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The selective scan's states in the forward, recomputed from the
+    inputs in the backward (nothing [B, S, d_inner, N] is saved); the
+    backward runs the adjoint recurrence g_t = exp(la_{t+1}) g_{t+1} +
+    gy_t C_t through the same chunked scan, reversed in time. Every
+    [.., d_inner, N] tensor is made chunk-major from the small inputs."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, B, C, s0, chunk):
+        cd = torch.promote_types(u.dtype, torch.float32)
+        S = u.shape[1]
+        c = max(1, min(chunk, S))
+        pad = (-S) % c
+        # dt = 0 past the end: no decay, no input
+        u_, dt_, B_, C_ = (F.pad(t.to(cd), (0, 0, 0, pad))
+                           for t in (u, dt, B, C))
+        dtc, Bc = _chunk_major(dt_, c), _chunk_major(B_, c)
+        s, last = _linear_scan(
+            dtc[..., None] * A.to(cd),
+            _chunk_major(dt_ * u_, c)[..., None] * Bc[..., None, :],
+            None if s0 is None else s0.to(cd))
+        y = torch.einsum("zkbdn,zkbn->zkbd", s, _chunk_major(C_, c))
+        ctx.chunk, ctx.has_s0 = c, s0 is not None
+        ctx.save_for_backward(u, dt, A, B, C,
+                              s0 if s0 is not None else u.new_empty(0))
+        return _time_major(y)[:, :S], last
+
+    @staticmethod
+    def backward(ctx, gy, glast):
+        u_in, dt_in, A_in, B_in, C_in, s0 = ctx.saved_tensors
+        cd = torch.promote_types(u_in.dtype, torch.float32)
+        S, c = u_in.shape[1], ctx.chunk
+        pad = (-S) % c
+        A = A_in.to(cd)
+        u, dt, B, C = (F.pad(t.to(cd), (0, 0, 0, pad))
+                       for t in (u_in, dt_in, B_in, C_in))
+        gy = (torch.zeros_like(u) if gy is None else
+              F.pad(gy.to(cd), (0, 0, 0, pad)))
+        s0 = s0.to(cd) if ctx.has_s0 else None
+        dtc, uc, Bc = (_chunk_major(t, c) for t in (dt, u, B))
+        s, _ = _linear_scan(dtc[..., None] * A,
+                            (dtc * uc)[..., None] * Bc[..., None, :], s0)
+        # the adjoint, reversed in time: decays la_{t+1} (none past the
+        # end), inputs gy_t C_t, the final state's gradient entering
+        dt_next = torch.cat([dt[:, 1:], torch.zeros_like(dt[:, :1])], 1)
+        g, _ = _linear_scan(
+            _chunk_major(dt_next.flip(1), c)[..., None] * A,
+            _chunk_major(gy.flip(1), c)[..., None] *
+            _chunk_major(C.flip(1), c)[..., None, :],
+            None if glast is None else glast.to(cd))
+        g = g.flip(0, 1)            # back to forward time
+        gyc = _chunk_major(gy, c)
+        gC = torch.einsum("zkbdn,zkbd->zkbn", s, gyc)
+        gs0 = (torch.exp(dtc[0, 0][..., None] * A) * g[0, 0]
+               if ctx.has_s0 else None)
+        gla = s.sub_((dtc * uc)[..., None] * Bc[..., None, :]).mul_(g)
+        gA = torch.einsum("zkbdn,zkbd->dn", gla, dtc)
+        gdt = torch.einsum("zkbdn,dn->zkbd", gla, A)
+        del gla, s
+        gBx = torch.einsum("zkbdn,zkbn->zkbd", g, Bc)   # sum_n g B
+        gB = torch.einsum("zkbdn,zkbd->zkbn", g, dtc * uc)
+        del g
+        grads = (gBx * dtc, gdt + gBx * uc, gB, gC)
+        gu, gdt, gB, gC = (_time_major(t)[:, :S] for t in grads)
+        return (gu.to(u_in.dtype), gdt.to(dt_in.dtype), gA.to(A_in.dtype),
+                gB.to(B_in.dtype), gC.to(C_in.dtype),
+                None if gs0 is None else gs0.to(s0.dtype), None)
+
+
+def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+                   initial_state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1's selective scan, the D skip left to the caller:
+    s_t = exp(dt_t A) * s_{t-1} + (dt_t u_t) B_t^T, y_t = s_t C_t.
+
+    u, dt [B,S,d] (dt post-softplus), A [d,N] negative, B, C [B,S,N],
+    initial_state [B,d,N]. Returns (y [B,S,d], final state [B,d,N]) in
+    float32 (float64 inputs stay float64). Plain torch ops, the same on
+    the CPU and the card: the chunked scan of :func:`_linear_scan`, under
+    an ``autograd.Function`` whose backward recomputes the states.
+    ``chunk`` the chunk's length; a power of two takes the fewest
+    doubling passes."""
+    return _SelectiveScan.apply(u, dt, A, B, C, initial_state, chunk)
+
+
+def selective_scan_step(state: torch.Tensor, u_t: torch.Tensor,
+                        dt_t: torch.Tensor, A: torch.Tensor,
+                        B_t: torch.Tensor, C_t: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token of :func:`selective_scan`. state [B,d,N]; u_t, dt_t
+    [B,d]; B_t, C_t [B,N]. Returns (y [B,d], new state), float32."""
+    cd = torch.promote_types(u_t.dtype, torch.float32)
+    dt_t = dt_t.to(cd)
+    new = state.to(cd) * torch.exp(dt_t[..., None] * A.to(cd)) + \
+        (dt_t * u_t.to(cd))[..., None] * B_t.to(cd)[:, None, :]
+    return torch.einsum("bdn,bn->bd", new, C_t.to(cd)), new
+
+
+def selective_scan_ref(u, dt, A, B, C, initial_state=None):
+    """The recurrence one position at a time (oracle for tests; small
+    shapes)."""
+    Bz, S, d = u.shape
+    cd = torch.promote_types(u.dtype, torch.float32)
+    state = (torch.zeros((Bz, d, A.shape[-1]), dtype=cd, device=u.device)
+             if initial_state is None else initial_state.to(cd))
+    ys = []
+    for t in range(S):
+        y, state = selective_scan_step(state, u[:, t], dt[:, t], A, B[:, t],
+                                       C[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1), state

@@ -36,12 +36,27 @@ DECODE_HEADROOM = 64    # extra slots a prefill leaves for generation
 
 
 def cache_slots(cfg: ModelConfig, shape: ShapeConfig,
-                extra_slots: int = 0) -> int:
+                extra_slots: int = 0, window: int = None) -> int:
     """KV slots: full seq (+headroom) for dense attention, window for SWA
-    (ring buffers never overflow — eviction handles capacity)."""
-    if cfg.sliding_window:
-        return min(shape.seq_len, cfg.sliding_window)
+    (ring buffers never overflow — eviction handles capacity). With meta
+    tokens, their slots first: then a ring of the whole window, or the
+    full sequence after them."""
+    window = cfg.sliding_window if window is None else window
+    M = cfg.meta_tokens
+    if M:
+        return M + (window if window else shape.seq_len + extra_slots)
+    if window:
+        return min(shape.seq_len, window)
     return shape.seq_len + extra_slots
+
+
+def _kv_cache_template(cfg: ModelConfig, n: int, B: int, S: int) -> dict:
+    KV = cfg.num_kv_heads
+    axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    return {"k": P((n, B, S, KV, cfg.head_dim), axes, "zeros", cfg.dtype),
+            "v": P((n, B, S, KV, cfg.value_dim), axes, "zeros", cfg.dtype),
+            "cpos": P((n, B, S), ("layers", "batch", "cache_seq"), "neg1",
+                      "int32")}
 
 
 def cache_template(cfg: ModelConfig, shape: ShapeConfig,
@@ -70,7 +85,17 @@ def cache_template(cfg: ModelConfig, shape: ShapeConfig,
                     "zeros", cfg.dtype),
         }
     else:
-        if cfg.num_heads:  # attention caches (dense/moe/vlm/hybrid)
+        if cfg.num_heads and cfg.per_layer_attention:
+            # the producing layers' lines alone, windowed and global apart
+            for suffix, glob in zoo._KV_KINDS:
+                n = sum((l in cfg.global_layers) == glob
+                        for l in cfg.kv_producers)
+                if n:
+                    S = cache_slots(cfg, shape, extra_slots,
+                                    0 if glob else cfg.sliding_window)
+                    layers.update({k + suffix: p for k, p in
+                                   _kv_cache_template(cfg, n, B, S).items()})
+        elif cfg.num_heads:  # attention caches (dense/moe/vlm/hybrid)
             S = cache_slots(cfg, shape, extra_slots)
             KV, hd = cfg.num_kv_heads, cfg.head_dim
             layers.update({
@@ -83,7 +108,16 @@ def cache_template(cfg: ModelConfig, shape: ShapeConfig,
                 "cpos": P((L, B, S), ("layers", "batch", "cache_seq"),
                           "neg1", "int32"),
             })
-        if cfg.ssm_state:  # ssm caches (ssm/hybrid)
+        if cfg.ssm_kind == "mamba1":  # hymba's conv and scan states
+            layers.update({
+                "conv": P((L, B, cfg.ssm_conv - 1, cfg.d_inner),
+                          ("layers", "batch", None, "ssm_dim"), "zeros",
+                          cfg.dtype),
+                "state": P((L, B, cfg.d_inner, cfg.ssm_state),
+                           ("layers", "batch", "ssm_dim", "ssm_state"),
+                           "zeros", "float32"),
+            })
+        elif cfg.ssm_state:  # ssm caches (ssm/hybrid)
             C = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
             layers.update({
                 "conv": P((L, B, cfg.ssm_conv - 1, C),
@@ -323,6 +357,25 @@ def _zeros(template, device):
                                           device=device), template)
 
 
+def meta_cache(params, cfg: ModelConfig, rules: Rules, par: Parallelism,
+               shape: ShapeConfig) -> dict:
+    """The cache of one sequence after the meta tokens alone, the lines
+    of ``cache_template(cfg, shape)`` at batch 1: where every serving
+    slot starts (the meta tokens are prefilled once)."""
+    dev = params["embed"].device
+    t = cache_template(cfg, shape.replace(global_batch=1))
+    with torch.inference_mode():
+        x = zoo.embed_tokens(params, cfg,
+                             torch.zeros((1, 0), dtype=torch.int32,
+                                         device=dev))
+        _, layers, _ = zoo.decoder_forward(
+            params, cfg, rules, par, x, zoo._positions(1, 0, dev),
+            cache={"layers": _zeros(t["layers"], dev)})
+    return {"layers": layers,
+            "pos": torch.full((1,), cfg.meta_tokens, dtype=torch.int32,
+                              device=dev)}
+
+
 def make_prefill_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
                       shape: ShapeConfig):
     # leave generation headroom so decode never overwrites live slots
@@ -344,7 +397,7 @@ def make_prefill_step(cfg: ModelConfig, rules: Rules, par: Parallelism,
             hid, layer_cache, _ = zoo.decoder_forward(
                 params, cfg, rules, par, x, pos,
                 cache={"layers": cache0}, decode=False)
-            S_total = x.shape[1]
+            S_total = x.shape[1] + cfg.meta_tokens
         logits = zoo.logits_fn(params, cfg, hid[:, -1:])
         B = hid.shape[0]
         cache = {"layers": layer_cache,

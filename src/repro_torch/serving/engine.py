@@ -63,6 +63,10 @@ class ServingEngine:
         self._decode = steps_lib.make_decode_step(cfg, self.rules, self.par,
                                                   shape)
         self.cache = self._init_cache()
+        # a slot starts after the meta tokens, prefilled once here
+        self._meta = (steps_lib.meta_cache(self.params, cfg, self.rules,
+                                           self.par, shape)
+                      if cfg.meta_tokens else None)
         self.active: Dict[int, Request] = {}       # slot -> request
         self.queue: List[Request] = []
         self.slot_prompt_left: Dict[int, List[int]] = {}
@@ -82,8 +86,14 @@ class ServingEngine:
         """Invalidate a slot's cache lines before reuse (continuous
         batching: new request must not attend to stale entries)."""
         lc = self.cache["layers"]
-        if "cpos" in lc:
-            lc["cpos"][:, s, :] = -1
+        if self._meta is not None:
+            for key, line in self._meta["layers"].items():
+                lc[key][:, s] = line[:, 0]
+            self.cache["pos"][s] = self._meta["pos"][0]
+            return
+        for key in lc:
+            if key.startswith("cpos"):
+                lc[key][:, s, :] = -1
         for key in ("conv", "state"):
             if key in lc:
                 lc[key][:, s] = 0

@@ -12,6 +12,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import (DataConfig, DataPipeline,
                                        SyntheticTokens, make_batch_fn)
 from repro_torch.models.steps import LABEL_IGNORE
+from test_torch_lm_params import port_spec
 
 
 def _pipe(num_hosts=1, host_id=0, seed=0, arch="llama3.2-1b"):
@@ -76,7 +77,7 @@ def test_vlm_labels_mask_the_patches():
 
 
 def _both(arch, dc_kw, shape=(64, 8), source_file=None):
-    tcfg = reduced_model(get_spec(arch).model)
+    tcfg = reduced_model(port_spec(arch).model)
     rc = rcfg.reduced_model(rcfg.get_spec(arch).model)
     S, B = shape
     if source_file:

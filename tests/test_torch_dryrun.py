@@ -3,12 +3,14 @@
 * ``estimate_device_memory`` and ``estimate_hbm_traffic`` (both
   ``attention_impl``s) equal the reference's at 1e-9 relative for every
   cell of ``all_cells()`` on both production meshes: arithmetic over
-  templates and rules, run on abstract meshes in both packages.
+  templates and rules, run on abstract meshes in both packages, the
+  port's cell built from the reference's config.
 * The dry run of the reference test's two cells (tests/test_dryrun.py)
   on a (2, 4) mesh of a fake process group, in a subprocess that makes
   and destroys its own group, with that test's assertions; its record
   has every key of the reference's (repro/launch/dryrun.py).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -23,6 +25,7 @@ import repro.configs as rcfg
 from repro.launch import compile as rcompile
 from repro_torch.launch import compile as tcompile
 from repro_torch.launch.mesh import AbstractMesh
+from test_torch_lm_params import port_spec
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 MESHES = {
@@ -58,7 +61,11 @@ def test_estimates_equal_the_reference(cell, mesh_name):
     arch, shape = cell
     dims, axes = MESHES[mesh_name]
     ref = rcompile.build_cell(arch, shape, JaxAbstractMesh(dims, axes))
-    port = tcompile.build_cell(arch, shape, AbstractMesh(dims, axes))
+    # the port's side built from the reference's config (the stand-in
+    # hybrid block for hymba-1.5b)
+    port = tcompile.build_cell(
+        arch, shape, AbstractMesh(dims, axes),
+        overrides=dataclasses.asdict(port_spec(arch).model))
     _close(tcompile.estimate_device_memory(port),
            rcompile.estimate_device_memory(ref))
     _close(tcompile.estimate_hbm_traffic(port),

@@ -11,6 +11,7 @@ atol), integers exactly. In the config's own bfloat16 the reference's
 elements of each output and twice it for every element: the two
 packages round bfloat16 apart (see ``assert_tree_close``).
 """
+import dataclasses
 import subprocess
 import sys
 from contextlib import contextmanager
@@ -52,12 +53,29 @@ BF16_OUTLIERS = 1e-2
 # shared helpers
 # ---------------------------------------------------------------------------
 
+def port_spec(arch: str, reduced: bool = False):
+    """The port's ArchSpec of ``arch`` built from the reference's, field
+    for field (reduced first when ``reduced``): what every test that
+    pairs the two packages runs on the port's side. The port's fields
+    the reference lacks keep their defaults, so its hymba-1.5b is the
+    reference's stand-in block, not the published one the port's own
+    config describes."""
+    spec = rcfg.get_spec(arch)
+    model = rcfg.reduced_model(spec.model) if reduced else spec.model
+    return tcfg.ArchSpec(
+        tcfg.ModelConfig(**dataclasses.asdict(model)),
+        tcfg.Parallelism(**dataclasses.asdict(spec.parallelism)),
+        source=spec.source)
+
+
 def configs(arch: str, dtype: str):
     """(reference cfg, par, rules), (port cfg, par, rules) at reduced
-    size in ``dtype``."""
+    size in ``dtype``; the port's built from the reference's
+    (:func:`port_spec`)."""
     out = []
     for lib, make in ((rcfg, rmake_rules), (tcfg, tmake_rules)):
-        spec = lib.get_spec(arch)
+        spec = (lib.get_spec(arch) if lib is rcfg else
+                port_spec(arch))
         cfg = lib.reduced_model(spec.model).replace(dtype=dtype)
         par = spec.parallelism.replace(**PAR_KW)
         out.append((cfg, par, make(None, cfg, par)))
@@ -378,7 +396,7 @@ def test_initialize_and_from_reference_default_to_the_card():
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("pure_dp", [False, True])
 def test_rules_spec_every_leaf_as_the_reference(arch, pure_dp):
-    rspec, tspec = rcfg.get_spec(arch), tcfg.get_spec(arch)
+    rspec, tspec = rcfg.get_spec(arch), port_spec(arch)
     rr = rmake_rules(None, rspec.model,
                      rspec.parallelism.replace(pure_dp=pure_dp))
     tr = tmake_rules(None, tspec.model,
@@ -421,7 +439,7 @@ def _port_leaves(tree):
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_cache_and_batch_templates_equal_the_reference(arch):
-    rm, tm = rcfg.get_spec(arch).model, tcfg.get_spec(arch).model
+    rm, tm = rcfg.get_spec(arch).model, port_spec(arch).model
     rm, tm = rcfg.reduced_model(rm), tcfg.reduced_model(tm)
     for kind, seq in (("train", 1100), ("prefill", 1100), ("decode", 40)):
         rs = rcfg.ShapeConfig(kind, kind, seq, 3)

@@ -29,6 +29,7 @@ from repro_torch.models import params as tparams
 from repro_torch.models import steps as tsteps
 from repro_torch.models.sharding import make_rules
 from repro_torch.serving import Request, ServingEngine
+from test_torch_lm_params import port_spec
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -44,7 +45,7 @@ def prompts(n, seed=0):
 def test_engine_serves_the_references_tokens(arch):
     rm = rcfg.reduced_model(rcfg.get_spec(arch).model).replace(
         dtype="float32")
-    tm = tcfg.reduced_model(tcfg.get_spec(arch).model).replace(
+    tm = tcfg.reduced_model(port_spec(arch).model).replace(
         dtype="float32")
     rp = rparams.initialize(rzoo.param_template(rm), jax.random.PRNGKey(0))
     ps = prompts(6)

@@ -25,6 +25,7 @@ from repro_torch.configs import get_spec
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models.model_zoo import padded_vocab
 from repro_torch.models.sharding import make_rules
+from test_torch_lm_params import port_spec
 
 ALL_ARCHS = rcfg.list_archs() + ["llama100m"]
 MESHES = {
@@ -40,7 +41,7 @@ MESH_POD = AbstractMesh(*MESHES["multipod"])
 
 def _pair(arch, mesh_name, flag):
     shape, axes = MESHES[mesh_name]
-    rspec, tspec = rcfg.get_spec(arch), get_spec(arch)
+    rspec, tspec = rcfg.get_spec(arch), port_spec(arch)
     rpar, tpar = rspec.parallelism, tspec.parallelism
     if flag is not None:
         rpar = rpar.replace(**{flag: not getattr(rpar, flag)})

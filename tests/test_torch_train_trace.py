@@ -2,11 +2,13 @@
 off, the step records nothing and its autograd graph is the one without
 markers; on, its outputs are bit-equal to the step's off; the span tree
 a step (``train_step`` over ``forward``, ``backward``, ``optimizer``;
-``block`` and ``ssd`` spans by phase); the host stamps on the profiler's
-clock; the exported trace against the kvi-trace-v1 schema; and
+``block``, the scan's and ``attention`` spans by phase); the host stamps
+on the profiler's clock; the exported trace against the kvi-trace-v1 schema; and
 ``python -m repro_torch.launch.train``'s ``--trace-out`` /
-``--metrics-out``. Reduced mamba2-1.3b and hymba-1.5b on the CPU, remat
-"none" and "block"; the test marked ``cuda`` runs on the card."""
+``--metrics-out``. Reduced mamba2-1.3b (the SSD scan, span ``ssd``) and
+hymba-1.5b (the selective scan, ``selective_scan``, beside attention)
+on the CPU, remat "none" and "block"; the test marked ``cuda`` runs on
+the card."""
 import contextlib
 import io
 import json
@@ -29,6 +31,8 @@ from repro_torch.models.sharding import make_rules
 from repro_torch.optim.optimizer import OptimizerConfig, adamw_init
 
 ARCHS = ["mamba2-1.3b", "hymba-1.5b"]
+#: each arch's scan span
+SCAN = {"mamba2-1.3b": "ssd", "hymba-1.5b": "selective_scan"}
 REMATS = ["none", "block"]
 MARKERS = {"_OpensInBackwardBackward", "_ClosesInBackwardBackward"}
 
@@ -120,11 +124,12 @@ def test_off_records_nothing_and_adds_no_node(arch, remat, monkeypatch):
                   lambda name, fn, *a, span_args=None, **kw: fn(*a, **kw))
         plain = graph(loss_of(cfg, par, rules, params, batch))
     assert sorted(off) == sorted(plain)
-    # on: two marker nodes a scan, nothing else added
+    # on: two marker nodes a scan and an attention, nothing else added
     with spans.activate(Obs.on()), spans.step(batch):
         on = graph(loss_of(cfg, par, rules, params, batch))
     assert sorted(n for n in on if n not in MARKERS) == sorted(plain)
-    assert sum(n in MARKERS for n in on) == 2 * cfg.num_layers
+    bracketed = 2 if cfg.family == "hybrid" else 1
+    assert sum(n in MARKERS for n in on) == 2 * bracketed * cfg.num_layers
 
 
 # ---------------------------------------------------------------------------
@@ -197,10 +202,16 @@ def test_span_tree(arch, remat):
             p = by_id[p]["args"]["parent"]
         return False
 
-    want = {("block", "forward"): L, ("ssd", "forward"): L,
-            ("ssd", "backward"): L,
-            ("block", "recompute"): L if remat == "block" else 0,
-            ("ssd", "recompute"): L if remat == "block" else 0}
+    scan = SCAN[arch]
+    recomputed = L if remat == "block" else 0
+    want = {("block", "forward"): L, (scan, "forward"): L,
+            (scan, "backward"): L,
+            ("block", "recompute"): recomputed,
+            (scan, "recompute"): recomputed}
+    if cfg.family == "hybrid":      # attention, bracketed beside the scan
+        want.update({("attention", "forward"): L,
+                     ("attention", "backward"): L,
+                     ("attention", "recompute"): recomputed})
     for (name, phase), n in want.items():
         got = named(name, phase)
         assert len(got) == n, (name, phase)
@@ -208,17 +219,25 @@ def test_span_tree(arch, remat):
         assert all(under(ev, parent) for ev in got), (name, phase)
     assert sorted(ev["args"]["layer"] for ev in named("block", "forward")) \
         == list(range(L))
-    # the scan inside its block; the recomputed blocks and the scan's
-    # backward (the autograd engine's) under the step's backward
-    for ev in named("ssd", "forward") + named("ssd", "recompute"):
-        assert by_id[ev["args"]["parent"]]["name"] == "block"
-    for ev in named("block", "recompute") + named("ssd", "backward"):
+    # the scan and attention inside their block; the recomputed blocks
+    # and their backward (the autograd engine's) under the step's backward
+    for name in (scan, "attention"):
+        for ev in named(name, "forward") + named(name, "recompute"):
+            assert by_id[ev["args"]["parent"]]["name"] == "block"
+        for ev in named(name, "backward"):
+            assert ev["args"]["parent"] == top["backward"]["args"]["span"]
+    for ev in named("block", "recompute"):
         assert ev["args"]["parent"] == top["backward"]["args"]["span"]
     # on CPU tensors every phase of the scan is the plain layer
-    assert {ev["args"]["path"] for ev in named("ssd")} == {"plain"}
+    assert {ev["args"]["path"] for ev in named(scan)} == {"plain"}
     n_attn = L if cfg.family == "hybrid" else 0
-    assert len(named("attention")) == n_attn * (2 if remat == "block"
-                                                else 1)
+    assert len(named("attention")) == n_attn * (3 if remat == "block"
+                                                else 2)
+    if n_attn:      # hymba: global and windowed, own and shared K/V
+        kinds = {(ev["args"]["window"], ev["args"]["kv"])
+                 for ev in named("attention", "forward")}
+        assert kinds == {("global", "own"), ("sliding", "own"),
+                         ("sliding", "shared")}
     # every span inside its parent, on the host lane
     for ev in evs:
         p = ev["args"]["parent"]
@@ -228,7 +247,7 @@ def test_span_tree(arch, remat):
     # the totals the benchmark's readers take
     got = spans.collected(obs)
     assert got["steps"] == 1
-    assert got["spans"]["ssd"]["count"] == (3 if remat == "block" else 2) * L
+    assert got["spans"][scan]["count"] == (3 if remat == "block" else 2) * L
     if remat == "block":
         assert got["spans"]["block/recompute"]["count"] == L
     else:
