@@ -225,7 +225,20 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    backward at the benchmark cell's row (``micro.SSD_TRAIN_CELL``) beside
    the plain layer and the bound. ``[ssd_train]`` lines and one JSON
    ``[ssd_train]`` line; ``--only-ssd-train`` runs this phase alone (no
-   kernel or ok line).
+   kernel or ok line);
+10. selective_scan — Mamba-1's scan for training (``kernels.
+   selective_scan``, which ``models.ssm.selective_scan`` runs on the
+   card): (a) y, the final state and every gradient against the plain
+   scan at five shapes (S past a segment, d past a block, N 3, 13, 16, 24;
+   the last the benchmark cell's 8 x 1152, d 3200), float32 and bf16 u, B
+   and C, one launch of each part a check; (b) two runs bit for bit; (c)
+   the forward and the forward and backward at the cell's shape
+   (``micro.SELECTIVE_SCAN_CELL``), beside the plain scan and the bounds;
+   (d) the scan's launches in one train step of
+   hymba-1.5b at full width and depth, blocks recomputed.
+   ``[selective_scan]`` lines and one JSON ``[selective_scan]`` line;
+   ``--only-selective-scan`` runs this phase alone (no kernel or ok
+   line).
 
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers
@@ -2377,6 +2390,112 @@ def run_ssd_step(device, seed, log=print) -> dict:
     return rec
 
 
+#: phase 10 (d): the benchmark cell's model (hymba-1.5b at full width and
+#: depth, blocks recomputed) for one train step of this batch x seq
+SCAN_STEP_ARCH, SCAN_STEP_B, SCAN_STEP_S = "hymba-1.5b", 2, 1024
+
+
+def scan_parts(since=None) -> dict:
+    """The Mamba-1 scan's launches by part (``selective_scan.
+    part_launches``), or those since ``since`` (an earlier reading)."""
+    from repro_torch.kernels import selective_scan as sk
+    now = dict(sk.part_launches)
+    return now if since is None else {k: now[k] - since[k] for k in now}
+
+
+def run_scan_step(device, seed, log=print) -> dict:
+    """Phase 10 (d): one train step of ``SCAN_STEP_ARCH`` at full width and
+    depth through ``launch.train.build_trainer`` with the blocks
+    recomputed, as the benchmark cell runs it: the scan's launches by
+    part, each forward part twice a layer (the forward and its recompute)
+    and each backward part once."""
+    import torch
+    from repro_torch.kernels import selective_scan as sk
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import params as params_lib
+    from repro_torch.optim.optimizer import adamw_init
+    cfg, par, shape, rules, step, data, opt = train.build_trainer(
+        SCAN_STEP_ARCH, reduced=False, seq=SCAN_STEP_S, batch=SCAN_STEP_B,
+        steps=10, overrides={"remat": "block"})
+    params = params_lib.initialize(zoo.param_template(cfg), seed,
+                                   device=device)
+    state = adamw_init(params, opt)
+    batch = train.place_batch(data.batch_at(0), cfg, shape, rules, device)
+    data.close()
+    before = scan_parts()
+    _, _, met = step(params, state, batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    got = scan_parts(since=before)
+    want = {**dict.fromkeys(sk.PARTS, 2 * L), **dict.fromkeys(sk.BWD_PARTS,
+                                                              L)}
+    loss = float(met["loss"])
+    if got != want or not np.isfinite(loss):
+        raise AssertionError(f"{SCAN_STEP_ARCH} step: scan launches {got}, "
+                             f"want {want}; loss {loss}")
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+    rec = dict(arch=SCAN_STEP_ARCH, batch=SCAN_STEP_B, seq=SCAN_STEP_S,
+               layers=L, remat=par.remat, loss=loss, scan_launches=got,
+               scan_launches_total=sum(got.values()))
+    log(f"[selective_scan] (d) {SCAN_STEP_ARCH} {SCAN_STEP_B} x "
+        f"{SCAN_STEP_S}, {L} layers, remat {par.remat}: one train step "
+        f"launched the scan's parts {json.dumps(got)}, "
+        f"{rec['scan_launches_total']} in all")
+    return rec
+
+
+def run_selective_scan(device, seed, card, log=print) -> dict:
+    """Phase 10: Mamba-1's scan for training (``kernels.selective_scan``,
+    the zoo's Mamba-1 scan on the card): (a) y, the final state and every
+    gradient against the plain scan (``checks.check_selective_scan``) at
+    ``checks.selective_scan_card_cases()`` (the last at the benchmark
+    cell's shape), float32 and bf16, one launch of each part a check; (b)
+    two runs at the cell's shape equal bit for bit; (c) the timings at the
+    cell's shape (``micro.time_selective_scan``); (d) the scan's launches
+    in one train step of the cell's model (:func:`run_scan_step`)."""
+    import torch
+    from repro_torch.kernels import checks, micro
+    from repro_torch.kernels import selective_scan as sk
+    rng = np.random.default_rng(seed)
+    cases = checks.selective_scan_card_cases()
+    err = dict.fromkeys(checks.SELECTIVE_SCAN_OUTPUTS, 0.0)
+    for shape in cases:
+        for dt in checks.LM_TYPES:
+            before = scan_parts()
+            got = checks.check_selective_scan(rng, device=device, dtype=dt,
+                                              **shape)
+            torch.cuda.synchronize()
+            if scan_parts(since=before) != dict.fromkeys(
+                    sk.PARTS + sk.BWD_PARTS, 1):
+                raise AssertionError(f"selective_scan launches at {shape}: "
+                                     f"{scan_parts(since=before)}")
+            err = {k: max(err[k], got[k]) for k in err}
+        torch.cuda.empty_cache()
+    log(f"[selective_scan] (a) outputs and gradients within the plain "
+        f"scan's error at {len(cases)} shapes (the last "
+        f"{json.dumps(cases[-1])}), float32 and bf16, max abs difference "
+        f"{json.dumps(err)}")
+    ops = checks.selective_scan_operands(rng, device=device,
+                                         dtype=torch.bfloat16, **cases[-1])
+    first, second = (checks.selective_scan_outputs(sk.selective_scan, *ops)
+                     for _ in range(2))
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("selective_scan: two runs differ")
+    del ops, first, second
+    torch.cuda.empty_cache()
+    log("[selective_scan] (b) two runs equal bit for bit")
+    timing = micro.time_selective_scan(micro.SELECTIVE_SCAN_CELL, rng,
+                                       device)
+    for label, t in timing.items():
+        log(f"[selective_scan] (c) {label} "
+            f"{json.dumps(micro.SELECTIVE_SCAN_CELL)}: {json.dumps(t)}")
+    step = run_scan_step(device, seed, log)
+    return dict(max_abs_diff=err, cases=len(cases), times=timing,
+                shape=micro.SELECTIVE_SCAN_CELL, step=step, card=card)
+
+
 def run_ssd_train(device, seed, card, log=print) -> dict:
     """Phase 9: the SSD scan for training (``ssd_scan.ssd_train``, the
     zoo's SSD on the card): (a) y, the final state and every gradient
@@ -3232,6 +3351,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-ssd-train", action="store_true",
                     help="run phase 9 alone (builds the SSD's training "
                          "source; no kernel or ok line)")
+    ap.add_argument("--only-selective-scan", action="store_true",
+                    help="run phase 10 alone (builds the Mamba-1 scan's "
+                         "source; no kernel or ok line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3301,6 +3423,17 @@ def main(argv=None) -> int:
 
     if args.only_ssd_train:
         ssd_train_phase()
+        return 0
+
+    def scan_phase():
+        out = run_selective_scan(device, args.seed, card,
+                                 log=lambda m: print(f"{m}; card: {card}"))
+        print(f"[selective_scan] {json.dumps(out)}")
+        stamp("selective_scan")
+        return out
+
+    if args.only_selective_scan:
+        scan_phase()
         return 0
 
     # 1. build -------------------------------------------------------------
@@ -3589,13 +3722,15 @@ def main(argv=None) -> int:
     mesh = mesh_phase(train)
     # 9. the SSD scan for training --------------------------------------------
     ssd_train = ssd_train_phase()
+    # 10. the Mamba-1 scan for training ----------------------------------------
+    scan = scan_phase()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels, "train": {
         k: v for k, v in train.items() if k not in ("reduced", "full_width",
                                                       "resume")},
         "mesh": {k: v for k, v in mesh.items() if k != "reduced"},
-        "ssd_train": ssd_train}))
+        "ssd_train": ssd_train, "selective_scan": scan}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1032,6 +1032,95 @@ def check_ssd_train(rng, Bz, S, H, P, N, G, chunk, device,
     return err
 
 
+def selective_scan_cases() -> Sequence[dict]:
+    """Shapes of the Mamba-1 scan's card checks: S not a multiple of the
+    kernels' segment of 16 positions, d not a multiple of a block's 32
+    channels, N ragged (3, 13) and past 16 (24: eight lanes a channel)."""
+    return (dict(Bz=2, S=100, d=40, N=16), dict(Bz=1, S=37, d=130, N=13),
+            dict(Bz=3, S=21, d=7, N=3), dict(Bz=2, S=70, d=50, N=24))
+
+
+def selective_scan_card_cases() -> Sequence[dict]:
+    """:func:`selective_scan_cases`, then the benchmark cell's widths
+    (hymba-1.5b at 8 x 1024 tokens and 128 meta tokens: 1152 positions,
+    d_inner 3200, 16 states)."""
+    return tuple(selective_scan_cases()) + (
+        dict(Bz=8, S=1152, d=3200, N=16),)
+
+
+#: the outputs :func:`check_selective_scan` compares, in order
+SELECTIVE_SCAN_OUTPUTS = ("y", "last", "gu", "gdt", "gA", "gB", "gC", "gs0")
+
+
+def selective_scan_operands(rng, Bz, S, d, N, device, dtype=torch.float32):
+    """(u, dt, A, B, C, s0, gy, glast) as hymba's mixer gives them: u, B
+    and C standard normal in ``dtype`` (conv and RMS-norm outputs), dt =
+    softplus of a normal around -2.5 and A = -(1 .. N) per channel times
+    a spread of 10 % (Mamba-1's initialisation), float32; the initial state
+    and the gradients of y and of the final state standard normal,
+    float32."""
+    f32 = lambda shape: random_floats(rng, shape, torch.float32, device)  # noqa: E731
+    dt = torch.nn.functional.softplus(f32((Bz, S, d)) - 2.5)
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=device) * \
+        torch.exp(0.1 * f32((d, N)))
+    return (random_floats(rng, (Bz, S, d), dtype, device), dt, A,
+            random_floats(rng, (Bz, S, N), dtype, device),
+            random_floats(rng, (Bz, S, N), dtype, device), f32((Bz, d, N)),
+            f32((Bz, S, d)), f32((Bz, d, N)))
+
+
+def selective_scan_outputs(fn, u, dt, A, B, C, s0, gy, glast) -> tuple:
+    """y, the final state and the gradients of (u, dt, A, B, C, s0) of
+    ``fn(u, dt, A, B, C, initial_state=s0)`` under autograd, for the output
+    gradients gy and glast."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (u, dt, A, B, C, s0)]
+    y, last = fn(*leaves[:5], initial_state=leaves[5])
+    grads = torch.autograd.grad((y, last), leaves, (gy, glast))
+    return (y.detach(), last.detach()) + grads
+
+
+def check_selective_scan(rng, Bz, S, d, N, device,
+                         dtype=torch.float32) -> dict:
+    """``kernels.selective_scan``'s outputs and gradients (on the card, one
+    forward launch and two backward launches) against the plain version
+    (``models.ssm._SelectiveScan`` at hymba's chunk of 4) on the same
+    tensors, both measured against the plain version in float64: each
+    output's largest error may be at most twice the plain float32
+    version's own, plus 64 float32 roundings and one step of a bf16 /
+    float16 output of its largest magnitude (the two walk the recurrence
+    in different orders, with exps of a few ulps each, and round the same
+    float32 numbers). Returns the largest absolute difference from the
+    plain version by output (:data:`SELECTIVE_SCAN_OUTPUTS`)."""
+    from repro_torch.kernels import selective_scan as sk
+    from repro_torch.models import ssm
+    _no_tf32(device)
+    ops = selective_scan_operands(rng, Bz, S, d, N, device, dtype)
+
+    def plain(u, dt, A, B, C, initial_state):
+        return ssm._SelectiveScan.apply(u, dt, A, B, C, initial_state, 4)
+
+    got = selective_scan_outputs(sk.selective_scan, *ops)
+    want = selective_scan_outputs(plain, *ops)
+    ref = selective_scan_outputs(plain, *(t.double() for t in ops))
+    err = {}
+    for name, g, w, r in zip(SELECTIVE_SCAN_OUTPUTS, got, want, ref):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"selective_scan {name}: {g.dtype} "
+                                 f"{tuple(g.shape)}, want {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        scale = r.abs().max().item()
+        e_got = (g.double() - r).abs().max().item()
+        e_want = (w.double() - r).abs().max().item()
+        tol = 2 * e_want + (64 * U32 + output_step(g.dtype)) * scale
+        if not e_got <= tol:
+            raise AssertionError(f"selective_scan {name}: error {e_got} "
+                                 f"against float64, above {tol} (the plain "
+                                 f"version's {e_want})")
+        err[name] = (g.double() - w.double()).abs().max().item()
+    return err
+
+
 MATMUL_TYPES = ((torch.float32, None), (torch.bfloat16, None),
                 (torch.bfloat16, torch.float32), (torch.int8, None))
 CONV_TYPES = ((torch.int32, 0), (torch.int32, 4), (torch.int32, 31),

@@ -739,6 +739,94 @@ def time_ssd_train(s: dict, rng: np.random.Generator, device) -> dict:
     return out
 
 
+#: ``kernels.selective_scan`` at the benchmark cell's shape: hymba-1.5b at
+#: 8 x 1024 tokens and 128 meta tokens (configs/hymba_1_5b.py), bf16 u, B
+#: and C, float32 dt, as the zoo's mixer gives them
+SELECTIVE_SCAN_CELL = dict(Bz=8, S=1152, d=3200, N=16, dtype="bfloat16")
+#: the H100 SXM's exponentials a second: 16 SFU results a clock on each of
+#: its 132 SMs (the CUDA programming guide's throughput table, compute
+#: capability 9.0) at its 1,980 MHz boost clock (NVIDIA's data sheet)
+EXP_PER_S = 132 * 16 * 1.98e9
+
+
+def selective_scan_costs(s: dict) -> Dict[str, Dict[str, float]]:
+    """Each direction's compulsory bytes (every input read once, every
+    output written once, in the types the cell gives them: u, B, C and the
+    gradients of u, B and C in ``s["dtype"]``, dt, A, y, the states and
+    the other gradients float32; no initial state) and exponentials (B S
+    d N a walk: the forward needs one, the backward at least one), beside
+    the bound they set."""
+    Bz, S, d, N = s["Bz"], s["S"], s["d"], s["N"]
+    act = torch.tensor([], dtype=DTYPES[s["dtype"]]).element_size()
+    sd, sn, a = Bz * S * d, Bz * S * N, d * N * 4
+    fwd = sd * (act + 4) + 2 * sn * act + a + sd * 4 + Bz * d * N * 4
+    bwd = (sd * (act + 4) + 2 * sn * act + a + sd * 4 + Bz * d * N * 4
+           + sd * (act + 4) + 2 * sn * act + a)
+    exps = Bz * S * d * N
+    out = {}
+    for label, nbytes in (("forward", fwd), ("backward", bwd),
+                          ("forward_backward", fwd + bwd)):
+        walks = 2 if label == "forward_backward" else 1
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        exp_ms = walks * exps / EXP_PER_S * 1e3
+        out[label] = dict(bytes=nbytes, exps=walks * exps, bytes_ms=bytes_ms,
+                          exp_ms=exp_ms, bound_ms=max(bytes_ms, exp_ms),
+                          bound_by="bytes" if bytes_ms >= exp_ms
+                          else "exponentials")
+    return out
+
+
+def time_selective_scan(s: dict, rng: np.random.Generator, device) -> dict:
+    """The Mamba-1 scan at ``s``: the forward (no checkpoints, as remat's
+    first pass and prefill run it), the forward and the backward from its
+    checkpoints (the backward their difference), each beside the plain
+    ``models.ssm._SelectiveScan`` (chunk 4, under autograd) and
+    :func:`selective_scan_costs`' bound; device ms from the profiler by
+    kernel. Launch counters set back."""
+    from repro_torch.kernels import selective_scan as sk
+    from repro_torch.models import ssm
+    saved = dict(sk.part_launches), sk.launch_count
+    u, dt, A, B, C, _, gy, _ = checks.selective_scan_operands(
+        rng, s["Bz"], s["S"], s["d"], s["N"], device, DTYPES[s["dtype"]])
+    ins = tuple(t.detach().clone().requires_grad_(True)
+                for t in (u, dt, A, B, C))
+    costs = selective_scan_costs(s)
+    names = tuple(f"{p}_kernel" for p in sk.PARTS + sk.BWD_PARTS)
+
+    def forward():
+        sk.scan_forward(u, dt, A, B, C, None, False)
+
+    def both():
+        _, _, ck = sk.scan_forward(u, dt, A, B, C, None, True)
+        sk.scan_backward(u, dt, A, B, C, ck, gy, None, False)
+
+    def plain_forward():
+        with torch.no_grad():
+            ssm._SelectiveScan.apply(u, dt, A, B, C, None, 4)
+
+    def plain_both():
+        y, _ = ssm._SelectiveScan.apply(*ins, None, 4)
+        torch.autograd.grad(y, ins, gy)
+
+    out = {"tiling": sk.TILINGS[sk.tiling_for(s["N"])]}
+    for label, fn, plain in (("forward", forward, plain_forward),
+                             ("forward_backward", both, plain_both)):
+        k = timed(fn, reps_for(fn), names)
+        p = timed(plain, reps_for(plain))
+        out[label] = dict(ms=k["device_ms"] or k["call_ms"],
+                          call_ms=k["call_ms"],
+                          device_ms_by=k["device_ms_by"],
+                          plain_ms=p["device_ms"] or p["call_ms"],
+                          plain_call_ms=p["call_ms"], **costs[label])
+    f, fb = out["forward"], out["forward_backward"]
+    out["backward"] = dict(ms=fb["ms"] - f["ms"],
+                           plain_ms=fb["plain_ms"] - f["plain_ms"],
+                           **costs["backward"])
+    sk.part_launches.update(saved[0])
+    sk.launch_count = saved[1]
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:

@@ -418,10 +418,12 @@ def _mamba1_forward(lp, x, cfg: ModelConfig, rules: Rules, conv_state=None,
             ssm_state, u[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
         y = y[:, None]
     else:
-        # the "selective_scan" span, its backward bracketed
+        # the "selective_scan" span, its backward bracketed; its arg path
+        # says whether the card's kernels ran
         y, new_state = spans.bracketed(
             "selective_scan", ssm_lib.selective_scan, u, dt, A, Bm, Cm,
-            span_args={"path": "plain"}, chunk=cfg.ssm_chunk,
+            span_args={"path": ssm_lib.selective_scan_path(u)},
+            chunk=cfg.ssm_chunk,
             initial_state=ssm_state)
     y = (y + u.float() * lp["D_skip"].float()).to(dtype)
     return y * F.silu(z.float()).to(dtype), (new_conv.to(dtype), new_state)

@@ -8,6 +8,9 @@ On CUDA tensors ``ssd_chunked`` runs the card's kernels instead
 ``autograd.Function``), so the zoo's training and prefill SSD take them;
 on CPU tensors it is the plain layer below, as the reference's zoo calls
 it. The path follows the tensors' device (:func:`ssd_path`).
+Hymba's Mamba-1 scan (:func:`selective_scan`, at the end) likewise runs
+``kernels.selective_scan``'s kernels on CUDA tensors and its plain
+chunked scan on CPU tensors (:func:`selective_scan_path`).
 Shapes: x [B,S,H,P] heads x headdim, B/C [B,S,G,N] (G groups, GQA-style),
 dt [B,S,H] (post-softplus), A [H] negative. The state here is
 [B,H,P,N], as the reference's; the kernel's is [B,H,N,P].
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.compat import (DTensor, Partial, Replicate, Shard,
                                 local_map)
+from repro_torch.kernels import selective_scan as sscan
 from repro_torch.kernels import ssd_scan
 from repro_torch.models.sharding import gather_dims
 
@@ -348,6 +352,14 @@ class _SelectiveScan(torch.autograd.Function):
                 None if gs0 is None else gs0.to(s0.dtype), None)
 
 
+def selective_scan_path(u: torch.Tensor) -> str:
+    """``"kernel"`` where :func:`selective_scan` runs the card's kernels
+    (CUDA tensors; not DTensors, which keep the plain Function), else
+    ``"plain"``."""
+    return ("kernel" if u.device.type == "cuda" and
+            not isinstance(u, DTensor) else "plain")
+
+
 def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, *, chunk: int,
                    initial_state: Optional[torch.Tensor] = None
@@ -357,11 +369,17 @@ def selective_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     u, dt [B,S,d] (dt post-softplus), A [d,N] negative, B, C [B,S,N],
     initial_state [B,d,N]. Returns (y [B,S,d], final state [B,d,N]) in
-    float32 (float64 inputs stay float64). Plain torch ops, the same on
-    the CPU and the card: the chunked scan of :func:`_linear_scan`, under
-    an ``autograd.Function`` whose backward recomputes the states.
-    ``chunk`` the chunk's length; a power of two takes the fewest
-    doubling passes."""
+    float32 (float64 inputs stay float64). CUDA tensors take the card's
+    kernels (``kernels.selective_scan``: one forward launch, two backward
+    launches under one ``autograd.Function``; they raise on what they do
+    not take); CPU tensors and DTensors the plain torch ops: the chunked
+    scan of :func:`_linear_scan`, under an ``autograd.Function`` whose
+    backward recomputes the states, ``chunk`` the chunk's length (a power
+    of two takes the fewest doubling passes). The path follows the
+    tensors (:func:`selective_scan_path`)."""
+    if selective_scan_path(u) == "kernel":
+        return sscan.selective_scan(u, dt, A, B, C,
+                                    initial_state=initial_state)
     return _SelectiveScan.apply(u, dt, A, B, C, initial_state, chunk)
 
 
