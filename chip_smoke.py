@@ -26,7 +26,7 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    integers bit for bit, floats within error bounds, with the per-path
    launch counters showing the bf16 / int8 products and bf16 attention
    on the tensor-core kernels and float32 on the CUDA-core ones; each
-   of the SSD scan's three kernels alone against its plain version (odd
+   of the SSD scan's four kernels alone against its plain version (odd
    shapes, bf16 x, and the mamba2 row), and the scan at odd shapes
    against a float64 numpy recurrence; an
    int8 product whose int32 sums wrap (no saturation); ``spm_fft`` bit
@@ -125,8 +125,9 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
    against an independent numpy formula (int64 sums, float64 products
    and FFTs); the launch counters must show one launch per call, on the
    tensor-core kernel for every bf16 and int8 product;
-   slice 3 — ``ops.attention_op`` and ``ops.ssd_scan_op`` (three
-   launches a call: chunk states, the scan over chunks, the chunk scan)
+   slice 3 — ``ops.attention_op`` and ``ops.ssd_scan_op`` (four
+   launches a call: the scores, the chunk states, the scan over chunks,
+   y)
    at the widths of the repo's configs (llama3.2-1b causal 4096,
    hymba-1.5b's heads with a window of 2048 over 8192, a mixtral
    prefill continuation,
@@ -243,7 +244,7 @@ imports nothing of JAX or of the reference package ``repro``. Phases:
 Any failed check raises, and the script exits non-zero. The last lines
 are the card's name and power limit, a JSON object of kernel numbers
 (``spm_matmul`` and ``flash_attention`` with their main-path launches by
-path; the SSD scan as its three kernels, each with the whole call under
+path; the SSD scan as its four kernels, each with the whole call under
 ``scan``; ``kvi_walk`` with every main-path structure under
 ``workloads``, serving's launches and device ms by bucket size under
 ``serving``, phase 3t's numbers under ``telemetry``, phase 3d's under
@@ -1692,7 +1693,7 @@ def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
     ``device``, with the compute kernels' launch counters set to 0 just
     before and read just after; then each output against its plain
     version and its numpy formula. On the card each call must be one
-    launch of its kernel (the SSD scan's three, one of each of its
+    launch of its kernel (the SSD scan's four, one of each of its
     kernels), and each bf16 / int8 product and bf16 attention call one
     of the tensor-core kernel (float32 the CUDA-core one). Returns
     ``(inputs by name, launches, largest difference from the plain
@@ -1742,7 +1743,7 @@ def run_compute_slice(device, rng, workloads, log=print, tag="slice2"):
 
 
 def check_ssd_kernels(rng, device, row_shape):
-    """Phase 2 for the SSD scan's three kernels: each against its plain
+    """Phase 2 for the SSD scan's four kernels: each against its plain
     version alone (``checks.check_ssd_parts``) at the odd shapes of
     ``checks.ssd_part_cases`` (float32 and bf16 x) and at the main
     path's row ``row_shape`` (float32), one launch of each per check;
@@ -1780,7 +1781,7 @@ def check_ssd_kernels(rng, device, row_shape):
 # ---------------------------------------------------------------------------
 
 def time_ssd_parts(w, x):
-    """Each of the SSD scan's three kernels alone at the workload's
+    """Each of the SSD scan's four kernels alone at the workload's
     shapes, beside its plain version and its bound
     (``micro.ssd_part_costs``). The scan over chunks is timed on one
     workspace, updated in place call after call (its values grow, its
@@ -1788,22 +1789,26 @@ def time_ssd_parts(w, x):
     from repro_torch.kernels import micro
     from repro_torch.kernels import ssd_scan as ss
     saved = micro.save_counts()
-    xx, da, dt, B, C = ss.kernel_inputs(x["x"], x["dt"], x["A"], x["B"],
-                                        x["C"])
-    da, dt, B, C = (t.float().contiguous() for t in (da, dt, B, C))
+    xx = x["x"]
+    da, dt, B, C = (t.float().contiguous() for t in (
+        x["dt"] * x["A"][None, None, :], x["dt"], x["B"], x["C"]))
     cs = ss.chunk_size(xx.shape[1], x["chunk"])
+    sc = ss.scores(B, C, cs)
     states, cum = ss.chunk_state(xx, da, dt, B, cs)
     work = states.clone()
     h_in, _ = ss.state_pass(states, cum, cs)
-    runs = {"ssd_chunk_state": (
+    runs = {"ssd_scores": (
+                lambda: ss.scores(B, C, cs),
+                lambda: ss.scores_plain(B, C, cs)),
+            "ssd_chunk_state": (
                 lambda: ss.chunk_state(xx, da, dt, B, cs),
                 lambda: ss.chunk_state_plain(xx, da, dt, B, cs)),
             "ssd_state_pass": (
                 lambda: ss.state_pass(work, cum, cs),
                 lambda: ss.state_pass_plain(work, cum, cs)),
-            "ssd_chunk_scan": (
-                lambda: ss.chunk_scan(xx, dt, B, C, cum, h_in, cs),
-                lambda: ss.chunk_scan_plain(xx, dt, B, C, cum, h_in, cs))}
+            "ssd_train_scan": (
+                lambda: ss.train_scan(xx, dt, C, cum, h_in, sc, cs),
+                lambda: ss.train_scan_plain(xx, dt, C, cum, h_in, sc, cs))}
     costs = micro.ssd_part_costs(w.shape)
     out = {}
     for name, (kern, plain) in runs.items():
@@ -2329,7 +2334,7 @@ def ssd_parts(since=None) -> dict:
     """The SSD's launches by part (``ssd_scan.part_launches``), or those
     since ``since`` (an earlier reading)."""
     from repro_torch.kernels import ssd_scan as ss
-    parts = ss.TRAIN_PARTS + ss.BWD_PARTS
+    parts = ss.PARTS + ss.BWD_PARTS
     now = {k: ss.part_launches[k] for k in parts}
     return now if since is None else {k: now[k] - since[k] for k in parts}
 
@@ -2343,7 +2348,7 @@ def ssd_step_launches(cfg, par) -> dict:
     L = cfg.num_layers if cfg.family == "ssm" or (
         cfg.family == "hybrid" and cfg.ssm_kind == "mamba2") else 0
     fwd = L * (2 if par.remat == "block" else 1)
-    return {**dict.fromkeys(ss.TRAIN_PARTS, fwd),
+    return {**dict.fromkeys(ss.PARTS, fwd),
             **dict.fromkeys(ss.BWD_PARTS, L)}
 
 
@@ -2512,7 +2517,7 @@ def run_ssd_train(device, seed, card, log=print) -> dict:
     from repro_torch.kernels import checks, micro
     from repro_torch.kernels import ssd_scan as ss
     rng = np.random.default_rng(seed)
-    parts = ss.TRAIN_PARTS + ss.BWD_PARTS
+    parts = ss.PARTS + ss.BWD_PARTS
     cases = checks.ssd_train_card_cases()
     err = dict.fromkeys(checks.SSD_TRAIN_OUTPUTS, 0.0)
     for shape in cases:
@@ -3514,7 +3519,7 @@ def main(argv=None) -> int:
         k: row.shape[k] for k in ("Bz", "S", "H", "P", "N", "chunk")})
     print(f"[check] kernels equal their plain versions on the card: "
           f"max abs err {err}; compute kernels at odd shapes {odd}; "
-          f"the SSD scan's three kernels alone {ssd_err} (odd shapes and "
+          f"the SSD scan's four kernels alone {ssd_err} (odd shapes and "
           f"{row.name}), the scan at odd shapes within its numpy formula; "
           f"spm_fft bit for bit at {exact} shapes, n = 1 .. 16384; "
           f"launches by path there {json.dumps(odd_paths)}; int8 "
@@ -3678,7 +3683,7 @@ def main(argv=None) -> int:
                 "bound_ms", "bound_by", "path", "glue_ms", "glue_call_ms",
                 "device_ms_by", "conv_hart") if key in t}
             for name, t in ws.items()})
-    # the SSD scan stands as its three kernels, each with the whole call
+    # the SSD scan stands as its four kernels, each with the whole call
     # beside it
     scan = dict(times.pop("ssd_scan"), max_abs_err=err["ssd_scan"],
                 launches=launches["ssd_scan"])
@@ -3760,7 +3765,7 @@ KERNELS = (
      "src/repro/kernels/het_mimd.py:25"),
     ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:29"),
-    ("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+    ("ssd_scan", "src/repro_torch/csrc/ssd_train.cu",
      "src/repro/kernels/ssd_scan.py:24"),
 )
 

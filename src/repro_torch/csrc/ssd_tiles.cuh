@@ -1,6 +1,6 @@
-// Tile routines of the SSD scan's kernels, shared by ssd_scan.cu (the op's
-// chunk scan), ssd_train.cu (the chunk states, the scan over chunks and the
-// training forward) and ssd_grad.cu (the training backward): 128 threads
+// Tile routines of the SSD scan's kernels, shared by ssd_train.cu (the
+// forward: the scores, the chunk states, the scan over chunks and y) and
+// ssd_grad.cu (the training backward): 128 threads
 // own a 64 x 64 tile of outputs, 8 x 4 a thread (rows 4 ty + r and 32 + 4
 // ty + r, columns 4 tx + q), fed from k-major shared tiles whose rows are
 // padded to 68 words; all arithmetic float32. Inputs of a type chosen at
@@ -28,9 +28,6 @@ __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; 
 __host__ __device__ inline int n_pad(int N) { return ceil_div(N, kK) * kK; }
 
 __device__ __forceinline__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
 
 // row r of the thread's 8 x 4 block
 __device__ __forceinline__ int row_of(int ty, int r) { return (r < 4 ? 0 : 32) + 4 * ty + (r & 3); }

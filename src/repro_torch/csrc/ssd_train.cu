@@ -1,6 +1,6 @@
-// The Mamba-2 SSD scan for training, its forward (ssd_grad.cu holds the
-// backward): the chunk states and the scan over chunks (which the three-
-// kernel scan of ssd_scan.cu runs too), the scores, and y from them. Per
+// The Mamba-2 SSD scan's forward, for the op (ops.ssd_scan_op) and for
+// training (ssd_grad.cu holds the backward): the chunk states and the scan
+// over chunks, the scores, and y from them. Per
 // (batch b, head h, chunk c), with u = dt x, cum the running sum of dt A
 // over the chunk, S_ij = C_i . B_j (once per group: head h reads group h /
 // (H / G)), L_ij = exp(cum_i - cum_j) for j <= i (else 0) and h_c the state
@@ -9,13 +9,13 @@
 //   h_{c+1} = exp(cum_last) h_c + sum_j exp(cum_last - cum_j) B_j^T u_j
 // from h_0 the initial state (or 0); all arithmetic float32.
 //
-// ssd_chunk_state_kernel and ssd_state_pass_kernel replace the TPU kernel
-// repro/kernels/ssd_scan.py::_ssd_kernel with ssd_scan.cu's chunk scan (see
-// there); each also has a backward form. ssd_scores_kernel and
-// ssd_train_scan_kernel replace no TPU kernel: the reference's zoo runs its
-// plain ssd_chunked, whose eager forward took a third of a mamba2 training
+// The four kernels, launched 3, 1, 2, 4, replace the TPU kernel
+// repro/kernels/ssd_scan.py::_ssd_kernel (one grid step per (b, h, chunk),
+// C B^T per head). In training they also replace the reference zoo's plain
+// ssd_chunked, whose eager forward took a third of a mamba2 training
 // step's SSD on the card in float32 elementwise passes over [b, c, h, 256,
-// 256] tensors (the backward, two thirds, is ssd_grad.cu's).
+// 256] tensors (the backward, two thirds, is ssd_grad.cu's). Kernels 1
+// and 2 also have a backward form.
 //   1. ssd_chunk_state_kernel: every chunk's own state from zero, an [N x
 //      cs] . [cs x P] product, one block per (b, h, c, 64-row N tile,
 //      64-column P tile); it writes cum to [Bz, H, S]. Backward form: the

@@ -21,8 +21,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_vops", "kdotp", "kvi_walk", "spm_matmul", "spm_conv2d",
-           "spm_fft", "het_mimd", "flash_attention", "ssd_scan", "ssd_train",
-           "ssd_grad", "selective_scan")
+           "spm_fft", "het_mimd", "flash_attention", "ssd_train", "ssd_grad",
+           "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -845,7 +845,7 @@ def compare_ssd(got, x, dt, A, B, C, *, chunk=256) -> float:
     plain version on the same inputs, within :func:`ssd_tolerance`
     capped at the JAX test's 3e-3 (plus one bf16 step for a bf16 y)."""
     _no_tf32(x.device)
-    ins = ss.kernel_inputs(x, dt, A, B, C)
+    ins = (x, dt * A[None, None, :], dt, B, C)
     want_y, want_s = ss.ssd_scan_plain(*ins, chunk=chunk)
     rel, y_terms, s_terms = ssd_tolerance(*ins, chunk)
     return max(_capped("ssd_scan y", got[0], want_y, rel, y_terms, SSD_TOL),
@@ -861,7 +861,7 @@ def check_ssd(rng, Bz, S, H, P, N, G, chunk, device,
 
 
 def ssd_part_cases() -> Sequence[dict]:
-    """Shapes of the three SSD kernels' checks, each alone: a chunk of 48
+    """Shapes of the four SSD kernels' checks, each alone: a chunk of 48
     (no whole 64 tile), N 40, P 24, one chunk and three; N and P past one
     tile, with 4-byte copies (N 70, then P 21 and N 37); four row tiles
     at the mamba2 row's widths."""
@@ -875,25 +875,34 @@ def ssd_part_cases() -> Sequence[dict]:
 def check_ssd_parts(rng, Bz, S, H, P, N, chunk, device,
                     dtype=torch.float32) -> dict:
     """Each SSD kernel (:data:`ssd_scan.PARTS`) against its plain version
-    on the same inputs, one launch each: the chunk states and cum from
-    the model's inputs; the scan over chunks and the chunk scan from the
-    plain version's own states and cum, so each kernel is held alone.
-    Tolerances, per implementation and doubled for two: cum, a sum of cs
-    terms in another order (``gamma(cs)`` of the running sum of |da|);
-    the chunk states, a sum of cs terms (``gamma(cs)``), a few ulps of
-    the products and the exp, and the exp's argument off by the cum's
-    error (``2 gamma(cs) cs max|da|``); the scan over chunks the same
-    rounded multiply and add in the same order, a few ulps of exp per
-    chunk; the chunk scan ``ssd_tolerance``'s terms without the cum's and
-    the carried state's. Each relative to the plain version run on
-    absolute values, capped at the JAX test's 3e-3 (plus one bf16 step
-    for a bf16 y). Returns the largest absolute difference by kernel."""
+    on the same inputs, one launch each, B and C of one group: the scores,
+    the chunk states and cum from the model's inputs; the scan over chunks
+    and y from the plain version's own scores, states and cum, so each
+    kernel is held alone. Tolerances, per implementation and doubled for
+    two: the scores, a sum of N terms (``gamma(N)``), over the lower
+    triangle the kernel writes; cum, a sum of cs terms in another order
+    (``gamma(cs)`` of the running sum of |da|); the chunk states, a sum
+    of cs terms (``gamma(cs)``), a few ulps of the products and the exp,
+    and the exp's argument off by the cum's error (``2 gamma(cs) cs
+    max|da|``); the scan over chunks the same rounded multiply and add in
+    the same order, a few ulps of exp per chunk; y, a sum of cs terms and
+    one of N (``gamma(cs) + gamma(N)``) and a few ulps of the products and
+    the exps. Each relative to the plain version run on absolute values,
+    capped at the JAX test's 3e-3 (plus one bf16 step for a bf16 y).
+    Returns the largest absolute difference by kernel."""
     _no_tf32(device)
-    x, da, dt, B, C = ss.kernel_inputs(*ssd_operands(
-        rng, Bz, S, H, P, N, 1, device, dtype))
+    x, dt, A, B, C = ssd_operands(rng, Bz, S, H, P, N, 1, device, dtype)
+    da = dt * A[None, None, :]
     cs = ss.chunk_size(S, chunk)
     nc = S // cs
     err = {}
+    lower = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=device))
+    got_sc, want_sc = ss.scores(B, C, cs), ss.scores_plain(B, C, cs)
+    sc_terms = ss.scores_plain(B.abs(), C.abs(), cs)
+    err["ssd_scores"] = _capped(
+        "ssd_scores", torch.where(lower, got_sc, 0.0),
+        torch.where(lower, want_sc, 0.0), 2 * (gamma(N) + 8 * U32),
+        sc_terms, SSD_TOL)
     got_s, got_cum = ss.chunk_state(x, da, dt, B, cs)
     want_s, want_cum = ss.chunk_state_plain(x, da, dt, B, cs)
     run_abs = torch.cumsum(da.abs().transpose(1, 2).reshape(Bz, H, nc, cs),
@@ -914,12 +923,12 @@ def check_ssd_parts(rng, Bz, S, H, P, N, chunk, device,
         _capped("ssd_state_pass h_in", got_h, want_h, rel, h_terms, SSD_TOL),
         _capped("ssd_state_pass state", got_f, want_f, rel, f_terms,
                 SSD_TOL))
-    got_y = ss.chunk_scan(x, dt, B, C, want_cum, want_h, cs)
-    want_y = ss.chunk_scan_plain(x, dt, B, C, want_cum, want_h, cs)
-    y_terms = ss.chunk_scan_plain(x.float().abs(), dt.abs(), B.abs(),
-                                  C.abs(), want_cum, want_h.abs(), cs)
-    rel = 2 * (2 * gamma(N) + gamma(cs) + 8 * U32)
-    err["ssd_chunk_scan"] = _capped("ssd_chunk_scan", got_y, want_y, rel,
+    got_y = ss.train_scan(x, dt, C, want_cum, want_h, want_sc, cs)
+    want_y = ss.train_scan_plain(x, dt, C, want_cum, want_h, want_sc, cs)
+    y_terms = ss.train_scan_plain(x.float().abs(), dt.abs(), C.abs(),
+                                  want_cum, want_h.abs(), want_sc.abs(), cs)
+    rel = 2 * (gamma(N) + gamma(cs) + 8 * U32)
+    err["ssd_train_scan"] = _capped("ssd_train_scan", got_y, want_y, rel,
                                     y_terms, SSD_TOL)
     return err
 
@@ -973,7 +982,7 @@ def ssd_train_outputs(x, dt, A, B, C, init, dy, dfinal, chunk) -> tuple:
 def ssd_train_plain(x, dt, A, B, C, init, dy, dfinal, chunk,
                     abs_terms=False) -> tuple:
     """What :func:`ssd_train_outputs` returns, by the plain versions: the
-    three plain steps, then ``ssd_scan.ssd_backward_plain``."""
+    plain forward steps, then ``ssd_scan.ssd_backward_plain``."""
     cs = ss.chunk_size(x.shape[1], chunk)
     states, cum = ss.chunk_state_plain(x, dt.float() * A.float(), dt, B, cs)
     h_in, final = ss.state_pass_plain(states, cum, cs, init)

@@ -279,7 +279,8 @@ def run_plain(w: Workload, x: dict):
     if w.kernel == "flash_attention":
         return fa.flash_attention_plain(x["q"], x["k"], x["v"], **_masks(x))
     if w.kernel == "ssd_scan":
-        return ss.ssd_scan_plain(*ss.kernel_inputs(*_ssd(x)),
+        xx, dt, A, B, C = _ssd(x)
+        return ss.ssd_scan_plain(xx, dt * A[None, None, :], dt, B, C,
                                  chunk=x["chunk"])
     return hm.het_mimd_composite_plain(x["img"], x["filt"], x["fre"],
                                        x["fim"], x["A"], x["B"])
@@ -378,40 +379,40 @@ def _attention_cost(s: dict) -> Tuple[int, List[Tuple[int, str]]]:
 
 
 def _ssd_cost(s: dict) -> Tuple[int, List[Tuple[int, str]]]:
-    # x, da, dt and the head-broadcast B, C the kernel reads, y and the
-    # state written; the four float32 products of each chunk, the two
-    # cs x cs ones over the j <= i half the function needs
+    # x, da, dt and B, C per group read, y and the state written; the
+    # float32 products of each chunk: C B^T once per group and y's over
+    # the j <= i half the function needs, the chunk state and C h per head
     size = torch.empty((), dtype=DTYPES[s["dtype"]]).element_size()
-    Bz, S, H, P, N = (s[c] for c in ("Bz", "S", "H", "P", "N"))
+    Bz, S, H, P, N, G = (s[c] for c in ("Bz", "S", "H", "P", "N", "G"))
     cs = min(s["chunk"], S)
     tri = cs * (cs + 1) // 2
-    per_chunk = 2 * tri * (N + P) + 4 * cs * N * P
-    nbytes = Bz * S * H * (2 * P * size + 2 * 4 + 2 * N * 4) \
+    nbytes = Bz * S * H * (2 * P * size + 2 * 4) + Bz * S * G * 2 * N * 4 \
         + Bz * H * N * P * 4
-    return nbytes, [(Bz * H * (S // cs) * per_chunk, "fp32")]
+    ops = Bz * (S // cs) * (G * 2 * tri * N + H * (2 * tri * P
+                                                    + 4 * cs * N * P))
+    return nbytes, [(ops, "fp32")]
 
 
 def ssd_part_costs(s: dict) -> Dict[str, Tuple[int, List[Tuple[int, str]]]]:
     """``(bytes, [(operations, "fp32")])`` of each SSD kernel alone: its
     inputs read once (workspaces included), its outputs written once, a
-    multiply-add two operations. The chunk states and the chunk scan
-    split the function's products (:func:`_ssd_cost`); the scan over
-    chunks adds a multiply and an add per state element and chunk. Then
-    the launches of ``ssd_scan.ssd_train`` (``TRAIN_PARTS`` and
-    ``BWD_PARTS``, with B and C per group: ``s["G"]``): the scores C B^T
-    once per group over the chunk's lower triangle, y from them; the
-    backward's chunk terms and reverse pass as the forward's, xbar (the
-    scores' and the state's products again), Shat (the heads' dy . x
-    over P), Cbar and Bbar (Shat's product once per group, the state
-    term per head, and its row sums with the tile's own rows), and the
-    decay's gradient (a dot of sbar and h_c per chunk); each workspace of
-    row sums written once and read once."""
+    multiply-add two operations. The forward's launches (``PARTS``, with B
+    and C per group: ``s["G"]``): the scores C B^T once per group over the
+    chunk's lower triangle, the chunk states, and y from the scores split
+    the function's products (:func:`_ssd_cost`); the scan over chunks adds
+    a multiply and an add per state element and chunk. Then the
+    backward's (``BWD_PARTS``): its chunk terms and reverse pass as the
+    forward's, xbar (the scores' and the state's products again), Shat
+    (the heads' dy . x over P), Cbar and Bbar (Shat's product once per
+    group, the state term per head, and its row sums with the tile's own
+    rows), and the decay's gradient (a dot of sbar and h_c per chunk);
+    each workspace of row sums written once and read once."""
     size = torch.empty((), dtype=DTYPES[s["dtype"]]).element_size()
     Bz, S, H, P, N = (s[c] for c in ("Bz", "S", "H", "P", "N"))
     G = s.get("G", H)
     cs = min(s["chunk"], S)
     nc = S // cs
-    x, row, bn = Bz * S * H * P * size, Bz * S * H * 4, Bz * S * H * N * 4
+    x, row = Bz * S * H * P * size, Bz * S * H * 4
     states, cum, state = Bz * H * nc * N * P * 4, Bz * H * S * 4, \
         Bz * H * N * P * 4
     chunks, groups = Bz * H * nc, Bz * G * nc
@@ -421,13 +422,11 @@ def ssd_part_costs(s: dict) -> Dict[str, Tuple[int, List[Tuple[int, str]]]]:
     npt, ntn, ntile = (-(-w // 64) for w in (P, N, cs))
     prods = chunks * (2 * tri * P + 2 * cs * N * P)      # y's, xbar's
     return {
-        "ssd_chunk_state": (x + 2 * row + bn + states + cum,
+        "ssd_scores": (2 * gbn + tiles, [(groups * 2 * tri * N, "fp32")]),
+        "ssd_chunk_state": (x + 2 * row + gbn + states + cum,
                             [(chunks * 2 * cs * N * P, "fp32")]),
         "ssd_state_pass": (2 * states + chunks * 4 + state,
                            [(chunks * 2 * N * P, "fp32")]),
-        "ssd_chunk_scan": (2 * x + row + 2 * bn + cum + states, [(
-            chunks * (cs * (cs + 1) * (N + P) + 2 * cs * N * P), "fp32")]),
-        "ssd_scores": (2 * gbn + tiles, [(groups * 2 * tri * N, "fp32")]),
         "ssd_train_scan": (2 * x + row + gbn + cum + states + tiles,
                            [(prods, "fp32")]),
         "ssd_bwd_chunk_state": (x + row + gbn + states,
@@ -598,7 +597,7 @@ COUNTERS = ("launch_count", "tc_launch_count")
 
 def launches_per_call(kernel: str, shape: Optional[dict] = None) -> int:
     """Kernel launches of one call of the workload's kernel module: one,
-    the SSD scan's three, or, for an FFT of more than 16384 points
+    the SSD scan's four, or, for an FFT of more than 16384 points
     (``shape["n"]``), its stage passes, transform and gather."""
     if kernel == "spm_fft" and shape is not None:
         return sf.launches_for(shape["n"])
@@ -681,11 +680,10 @@ def time_kernel(w: Workload, x: dict) -> dict:
 #: group as the zoo makes them, chunk 256
 SSD_TRAIN_CELL = dict(Bz=8, S=4096, H=64, P=64, N=128, G=1, chunk=256,
                       dtype="bfloat16")
-#: the device names of ``ssd_train``'s kernels: the forward's, then the
-#: backward's own (its chunk terms and reverse pass run the forward's
-#: chunk-state and state-pass kernels again)
-SSD_TRAIN_KERNELS = ("ssd_scores_kernel", "ssd_chunk_state_kernel",
-                     "ssd_state_pass_kernel", "ssd_train_scan_kernel")
+#: the device names of ``ssd_train``'s kernels: the forward's (the op's),
+#: then the backward's own (its chunk terms and reverse pass run the
+#: forward's chunk-state and state-pass kernels again)
+SSD_TRAIN_KERNELS = tuple(f"{p}_kernel" for p in ss.PARTS)
 SSD_BWD_KERNELS = ("ssd_bwd_dx_kernel", "ssd_bwd_ds_kernel",
                    "ssd_bwd_dbc_kernel", "ssd_bwd_dcum_kernel")
 
@@ -723,10 +721,10 @@ def time_ssd_train(s: dict, rng: np.random.Generator, device) -> dict:
 
     out = {}
     for label, wrap, names, parts in (
-            ("forward", forward, SSD_TRAIN_KERNELS, ss.TRAIN_PARTS),
+            ("forward", forward, SSD_TRAIN_KERNELS, ss.PARTS),
             ("forward_backward", forward_backward,
              SSD_TRAIN_KERNELS + SSD_BWD_KERNELS,
-             ss.TRAIN_PARTS + ss.BWD_PARTS)):
+             ss.PARTS + ss.BWD_PARTS)):
         kern, plain = wrap(ss.ssd_train), wrap(ssd_chunked_plain)
         k = timed(kern, reps_for(kern), names)
         out[label] = dict(times(k, timed(plain, reps_for(plain))),

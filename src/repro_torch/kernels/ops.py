@@ -18,7 +18,7 @@ from repro_torch.kernels.het_mimd import het_mimd_composite  # noqa: F401
 from repro_torch.kernels.spm_conv2d import spm_conv2d
 from repro_torch.kernels.spm_fft import spm_fft
 from repro_torch.kernels.spm_matmul import spm_matmul
-from repro_torch.kernels.ssd_scan import kernel_inputs, ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 # ---- KVI element-wise intrinsics (single-op / fused slot programs) ---------
@@ -108,6 +108,7 @@ def attention_op(q, k, v, *, causal: bool = True, window: int = 0,
 
 def ssd_scan_op(x, dt, A, B, C, *, chunk: int = 256):
     """Model-facing wrapper: x [Bz,S,H,P], dt [Bz,S,H], A [H],
-    B/C [Bz,S,G,N] (GQA-style groups) — broadcasts groups to heads,
-    precomputes da = dt*A, calls the kernel (one launch)."""
-    return ssd_scan(*kernel_inputs(x, dt, A, B, C), chunk=chunk)
+    B/C [Bz,S,G,N] (GQA-style groups, passed as they are) — precomputes
+    da = dt*A and calls the scan (``ssd_scan.LAUNCHES_PER_CALL``
+    launches)."""
+    return ssd_scan(x, dt * A[None, None, :], dt, B, C, chunk=chunk)

@@ -4,54 +4,55 @@ with its gradient.
 
 ``ssd_scan(x, da, dt, B, C, chunk=256)`` takes x ``[Bz, S, H, P]``
 (float32, bf16 or float16), da = dt * A and dt ``[Bz, S, H]``, and B, C
-``[Bz, S, G, N]`` for G groups that divide the H heads (the op
-:func:`repro_torch.kernels.ops.ssd_scan_op` broadcasts them to the heads,
-G = H), and returns y ``[Bz, S, H, P]`` in x's dtype and the final state
-``[Bz, H, N, P]`` in float32. Chunks of ``cs = min(chunk, S)`` steps: S
-must be a multiple of cs (``ValueError``, where the reference asserts).
-All arithmetic is float32; with cum the running sum of da within a chunk
-and xdt = x dt:
+``[Bz, S, G, N]`` for G groups that divide the H heads (head h reads
+group h / (H / G); :func:`repro_torch.kernels.ops.ssd_scan_op` passes the
+model's groups as they are), and returns y ``[Bz, S, H, P]`` in x's dtype
+and the final state ``[Bz, H, N, P]`` in float32. Chunks of ``cs =
+min(chunk, S)`` steps: S must be a multiple of cs (``ValueError``, where
+the reference asserts). All arithmetic is float32; with cum the running
+sum of da within a chunk and xdt = x dt, the steps of a call
+(:data:`PARTS`) are:
 
-1. :func:`chunk_state` — each chunk's own state from zero, ``s_c =
+1. :func:`scores` — ``C_i . B_j`` of each chunk and group ``[Bz, G,
+   S/cs, cs, cs]``, which the group's heads share;
+2. :func:`chunk_state` — each chunk's own state from zero, ``s_c =
    (B * exp(cum_last - cum))^T xdt`` ``[Bz, H, S/cs, N, P]``, and cum
-   ``[Bz, H, S]`` (the one cum the other two read);
-2. :func:`state_pass` — the scan over chunks, ``h_in[c + 1] =
+   ``[Bz, H, S]`` (the one cum the other steps read);
+3. :func:`state_pass` — the scan over chunks, ``h_in[c + 1] =
    exp(cum_last) h_in[c] + s_c`` from an initial state (zero by
    default): overwrites the chunk states with ``h_in`` in place and
    returns the final state;
-3. :func:`chunk_scan` — y, the intra-chunk term ``(C B^T * seg) xdt``
+4. :func:`train_scan` — y, the intra-chunk term ``(scores * seg) xdt``
    (seg the masked decay ``exp(cum_i - cum_j)``, j <= i, masked before
    its exp) plus the inter-chunk term ``exp(cum) * (C h_in)``.
 
-On CUDA tensors each step is one launch of its kernel (the first two in
-``csrc/ssd_train.cu``, the third in ``csrc/ssd_scan.cu``), in that order
-on the current stream (da, dt, B and C widened to float32 first, which is
-exact), so :func:`ssd_scan` launches ``LAUNCHES_PER_CALL`` kernels a
-call; on CPU tensors each runs its plain version (``*_plain``), and
-:func:`ssd_scan_plain` is their composition. Any N: where the chunk
-scan's whole tile of C would pass a block's 227 KB of shared memory (N
-above 608 at chunk 256) it streams C (:func:`streams_c`). A chunk whose
-per-step vectors pass that (cs above 16469, :func:`smem_bytes`) raises
-``ValueError``. The reference's ``interpret`` has no counterpart.
+On CUDA tensors each step is one launch of its kernel in
+``csrc/ssd_train.cu``, in that order on the current stream (da, dt, B and
+C widened to float32 first, which is exact), so :func:`ssd_scan` launches
+``LAUNCHES_PER_CALL`` kernels a call; on CPU tensors each runs its plain
+version (``*_plain``), and :func:`ssd_scan_plain` is their composition.
+Any N and P: every kernel tiles them in its grid. A chunk whose per-step
+vectors pass a block's 227 KB of shared memory (cs above 16469,
+:func:`smem_bytes`) raises ``ValueError``. The reference's ``interpret``
+has no counterpart.
 
 Training. :func:`ssd_train` is ``models.ssm.ssd_chunked``'s scan (its
 layouts, B and C per group, an initial state) under one
 ``autograd.Function``, which ``ssd_chunked`` runs on CUDA tensors: on the
 card the zoo's training and prefill SSD run these kernels, while the
-reference's zoo differentiates its plain layer. Its forward is
-:data:`TRAIN_PARTS` (C B^T once per chunk and group, the chunk states and
-the scan over chunks, y from the scores), its backward
-:data:`BWD_PARTS`, one launch each, every cs x cs tile kept on chip and
-every sum in one order (two runs give the same bits); the equations are
-in the headers of ``csrc/ssd_train.cu`` and ``csrc/ssd_grad.cu``. On CPU
-tensors the Function runs the plain versions and
-:func:`ssd_backward_plain`. :data:`part_launches` counts every launch by
-part.
+reference's zoo differentiates its plain layer. Its forward is the same
+function as :func:`ssd_scan` (:data:`PARTS`),
+its backward :data:`BWD_PARTS`, one launch each, every cs x cs tile kept
+on chip and every sum in one order (two runs give the same bits); the
+equations are in the headers of ``csrc/ssd_train.cu`` and
+``csrc/ssd_grad.cu``. On CPU tensors the Function runs the plain versions
+and :func:`ssd_backward_plain`. :data:`part_launches` counts every launch
+by part.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -62,16 +63,12 @@ MAX_SMEM = 232448          # a block's opt-in shared memory on an H100
 TILE = 64                  # the kernels' tile edge (csrc/ssd_tiles.cuh)
 SLAB = 32                  # their K slab
 LD = TILE + 4              # words per row of a shared tile
-STAGES = 3                 # the chunk scan's ring of slabs
-#: the three kernels of a call, in launch order (also their device names,
-#: with ``_kernel`` appended)
-PARTS = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
+#: the four kernels of a call, the op's and the training forward's, in
+#: launch order (also their device names, with ``_kernel`` appended):
+#: C B^T once per chunk and group, the chunk states, the scan over
+#: chunks, and y from the scores
+PARTS = ("ssd_scores", "ssd_chunk_state", "ssd_state_pass", "ssd_train_scan")
 LAUNCHES_PER_CALL = len(PARTS)
-#: the forward's launches of :func:`ssd_train` on the card, in order: the
-#: scores of ``csrc/ssd_train.cu``, the first two kernels of a call, and
-#: y from the scores (device name ``ssd_train_scan_kernel``)
-TRAIN_PARTS = ("ssd_scores", "ssd_chunk_state", "ssd_state_pass",
-               "ssd_train_scan")
 #: the backward's launches, in order: the chunk-state and state-pass
 #: kernels in their backward forms, then ``csrc/ssd_grad.cu``'s
 #: ``ssd_bwd_dx_kernel``, ``ssd_bwd_ds_kernel``, ``ssd_bwd_dbc_kernel``
@@ -82,38 +79,24 @@ BWD_PARTS = ("ssd_bwd_chunk_state", "ssd_bwd_state_pass", "ssd_bwd_dx",
 #: kernel launches so far, forward and backward (the CUDA path only)
 launch_count = 0
 #: kernel launches so far, by part
-part_launches: Dict[str, int] = dict.fromkeys(
-    PARTS + ("ssd_scores", "ssd_train_scan") + BWD_PARTS, 0)
+part_launches: Dict[str, int] = dict.fromkeys(PARTS + BWD_PARTS, 0)
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _scan_resident_bytes(N: int, cs: int) -> int:
-    return 4 * (_ceil(N, SLAB) * SLAB * LD + STAGES * SLAB * LD
-                + 2 * TILE * LD + 2 * cs)
-
-
-def streams_c(N: int, cs: int) -> bool:
-    """Whether the chunk scan streams C in slabs beside B (``kStreamC``)
-    because its whole 64 x N tile of C would pass a block's shared
-    memory (mirrors ``scan_streams_c`` in ``csrc/ssd_scan.cu``)."""
-    return _scan_resident_bytes(N, cs) > MAX_SMEM
-
-
-def smem_bytes(N: int, cs: int) -> Dict[str, int]:
-    """Each kernel's shared memory at (N, cs) (mirrors ``state_smem`` in
-    ``csrc/ssd_train.cu`` and ``scan_smem`` in ``csrc/ssd_scan.cu``): the
-    chunk state's two stages of B and of x dt w, and the chunk's cum, dt
-    and w (N and P are tiled in the grid); the chunk scan's 64 x N tile of C (or, streaming C,
-    three stages of it), three stages of B or h_in, the scores, x, and
-    the chunk's cum and dt. P is tiled in the grid and takes none."""
-    scan = (4 * (2 * STAGES * SLAB * LD + 2 * TILE * LD + 2 * cs)
-            if streams_c(N, cs) else _scan_resident_bytes(N, cs))
-    return {"ssd_chunk_state": 4 * (4 * SLAB * LD + 3 * cs),
+def smem_bytes(cs: int) -> Dict[str, int]:
+    """Each kernel's shared memory at chunk cs (mirrors ``state_smem`` and
+    ``tiles_smem`` in ``csrc/ssd_train.cu``): the scores' two 64 x 68
+    tiles; the chunk state's two stages of B and of x dt w, and the
+    chunk's cum, dt and w; y's two tiles and the chunk's cum and dt. N and
+    P are tiled in the grid and take none."""
+    tiles = 4 * 2 * TILE * LD
+    return {"ssd_scores": tiles,
+            "ssd_chunk_state": 4 * (4 * SLAB * LD + 3 * cs),
             "ssd_state_pass": 0,
-            "ssd_chunk_scan": scan}
+            "ssd_train_scan": tiles + 4 * 2 * cs}
 
 
 def chunk_size(S: int, chunk: int) -> int:
@@ -123,22 +106,6 @@ def chunk_size(S: int, chunk: int) -> int:
         raise ValueError(f"ssd_scan: S = {S} is not a multiple of the chunk "
                          f"{cs}")
     return cs
-
-
-def scan_block_order(Bz: int, H: int, S: int, P: int, cs: int
-                     ) -> List[Tuple[int, int, int, int, int]]:
-    """``(row tile, b, h, chunk, P tile)`` of each block of the chunk scan,
-    by ``blockIdx.x`` (the kernel's own decoding): row tile ``it`` does
-    ``it + 1`` column tiles, so the heaviest tiles come first."""
-    nc, ntile, npt = S // cs, _ceil(cs, TILE), _ceil(P, TILE)
-    per = Bz * H * nc * npt
-    order = []
-    for q in range(per * ntile):
-        it, rest = ntile - 1 - q // per, q % per
-        pt, rest = rest % npt, rest // npt
-        c, bh = rest % nc, rest // nc
-        order.append((it, bh // H, bh % H, c, pt))
-    return order
 
 
 def _check(x, da, dt, B, C) -> None:
@@ -193,35 +160,40 @@ def _raise_on(rc: int, part: str) -> None:
 def ssd_scan(x: torch.Tensor, da: torch.Tensor, dt: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y, state) of the chunk scan (see the module docstring). CUDA
-    tensors launch the three kernels in order; CPU tensors run
-    :func:`ssd_scan_plain`."""
+    """(y, state) of the scan (see the module docstring), from a zero
+    state and outside autograd: :func:`_forward`, which launches
+    :data:`PARTS` in order on CUDA tensors and runs the plain versions on
+    CPU tensors."""
     _check(x, da, dt, B, C)
     Bz, S, H, P = x.shape
-    N = B.shape[-1]
     cs = chunk_size(S, chunk)
-    if not _card(x):
-        return ssd_scan_plain(x, da, dt, B, C, chunk=chunk)
-    if x.dtype not in DTYPES:
-        raise TypeError(f"ssd_scan takes float32, bfloat16 or float16 x, "
-                        f"got {x.dtype}")
-    need = max(smem_bytes(N, cs).values())
-    if need > MAX_SMEM:
-        raise ValueError(f"ssd_scan: chunk {cs} needs {need} bytes of "
-                         f"shared memory, above {MAX_SMEM}")
-    x = x.contiguous()
-    da, dt, B, C = _f32(da, dt, B, C)
-    if x.numel() == 0 or B.numel() == 0:
-        return torch.empty_like(x), torch.zeros(
-            (Bz, H, N, P), dtype=torch.float32, device=x.device)
-    states, cum = chunk_state(x, da, dt, B, cs)
-    h_in, state = state_pass(states, cum, cs)
-    return chunk_scan(x, dt, B, C, cum, h_in, cs), state
+    if _card(x) and (x.numel() == 0 or B.numel() == 0):
+        return torch.zeros_like(x), torch.zeros(
+            (Bz, H, B.shape[-1], P), dtype=torch.float32, device=x.device)
+    return _forward(x, da, dt, B, C, None, cs)[:2]
+
+
+def scores(B: torch.Tensor, C: torch.Tensor, cs: int) -> torch.Tensor:
+    """Step 1: ``C_i . B_j`` of each chunk and group ``[Bz, G, S/cs, cs,
+    cs]``, float32; one launch of ``ssd_scores_kernel`` on the card, which
+    writes the 64 x 64 tiles of the lower triangle only (y and the
+    backward read j <= i)."""
+    if not _card(B, C):
+        return scores_plain(B, C, cs)
+    Bz, S, G, N = B.shape
+    B, C = _f32(B, C)
+    out = torch.empty((Bz, G, S // cs, cs, cs), dtype=torch.float32,
+                      device=B.device)
+    _raise_on(_library().ssd_scores_launch(
+        B.data_ptr(), C.data_ptr(), out.data_ptr(), Bz, S, N, cs, G,
+        _stream(B)), "ssd_scores")
+    _launched("ssd_scores")
+    return out
 
 
 def chunk_state(x: torch.Tensor, da: torch.Tensor, dt: torch.Tensor,
                 B: torch.Tensor, cs: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Step 1: (chunk states ``[Bz, H, S/cs, N, P]``, cum ``[Bz, H, S]``),
+    """Step 2: (chunk states ``[Bz, H, S/cs, N, P]``, cum ``[Bz, H, S]``),
     both float32 and non-empty shapes only; one launch of
     ``ssd_chunk_state_kernel`` on the card."""
     if not _card(x, da, dt, B):
@@ -245,7 +217,7 @@ def chunk_state(x: torch.Tensor, da: torch.Tensor, dt: torch.Tensor,
 def state_pass(states: torch.Tensor, cum: torch.Tensor, cs: int,
                init: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Step 2, in place: ``states`` (contiguous float32) becomes h_in, the
+    """Step 3, in place: ``states`` (contiguous float32) becomes h_in, the
     state each chunk starts from (the first ``init`` ``[Bz, H, N, P]``, or
     zero); returns it and the final state ``[Bz, H, N, P]``. One launch of
     ``ssd_state_pass_kernel`` on the card."""
@@ -267,46 +239,34 @@ def state_pass(states: torch.Tensor, cum: torch.Tensor, cs: int,
     return states, state
 
 
-def chunk_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-               C: torch.Tensor, cum: torch.Tensor, h_in: torch.Tensor,
+def train_scan(x: torch.Tensor, dt: torch.Tensor, C: torch.Tensor,
+               cum: torch.Tensor, h_in: torch.Tensor, sc: torch.Tensor,
                cs: int) -> torch.Tensor:
-    """Step 3: y ``[Bz, S, H, P]`` in x's dtype from cum and h_in; one
-    launch of ``ssd_chunk_scan_kernel`` on the card."""
-    if not _card(x, dt, B, C, cum, h_in):
-        return chunk_scan_plain(x, dt, B, C, cum, h_in, cs)
+    """Step 4: y ``[Bz, S, H, P]`` in x's dtype from cum, h_in and the
+    scores ``sc`` (of which it reads j <= i); one launch of
+    ``ssd_train_scan_kernel`` on the card."""
+    if not _card(x, dt, C, cum, h_in, sc):
+        return train_scan_plain(x, dt, C, cum, h_in, sc, cs)
     Bz, S, H, P = x.shape
-    N = B.shape[-1]
+    G, N = C.shape[2], C.shape[3]
     x = x.contiguous()
-    dt, B, C, cum, h_in = _f32(dt, B, C, cum, h_in)
+    dt, C, cum, h_in, sc = _f32(dt, C, cum, h_in, sc)
     y = torch.empty_like(x)
-    rc = _library("ssd_scan").ssd_chunk_scan_launch(
-        DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), B.data_ptr(),
-        C.data_ptr(), cum.data_ptr(), h_in.data_ptr(), y.data_ptr(), Bz, S,
-        H, P, N, cs, B.shape[2], _stream(x))
-    _raise_on(rc, "ssd_chunk_scan")
-    _launched("ssd_chunk_scan")
+    _raise_on(_library().ssd_train_scan_launch(
+        DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), C.data_ptr(),
+        cum.data_ptr(), h_in.data_ptr(), sc.data_ptr(), y.data_ptr(),
+        Bz, S, H, P, N, cs, G, _stream(x)), "ssd_train_scan")
+    _launched("ssd_train_scan")
     return y
-
-
-def kernel_inputs(x, dt, A, B, C):
-    """What ``ops.ssd_scan_op`` hands the kernels, from the model-facing
-    inputs (A [H], B / C [Bz, S, G, N]): (x, da = dt A, dt, B and C
-    repeated from their G groups to the H heads)."""
-    rep = x.shape[2] // B.shape[2]
-    return (x, dt * A[None, None, :], dt,
-            torch.repeat_interleave(B, rep, dim=2),
-            torch.repeat_interleave(C, rep, dim=2))
 
 
 _I64, _VP, _CI = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
 _SIZES = [_I64] * 6                           # Bz, S, H, P, N, cs
 #: each library's launchers and their arguments before the stream:
-#: ``csrc/ssd_scan.cu`` holds the chunk scan, ``csrc/ssd_train.cu`` the
-#: chunk states and the scan over chunks (which both paths run) and the
-#: training forward, ``csrc/ssd_grad.cu`` the training backward; the
-#: training path builds the last two, in parallel
+#: ``csrc/ssd_train.cu`` holds the forward's four kernels (two of which
+#: the backward runs again in their backward forms), ``csrc/ssd_grad.cu``
+#: the backward's own
 _SIGNATURES = {
-    "ssd_scan": {"ssd_chunk_scan_launch": [_CI] + [_VP] * 7 + _SIZES + [_I64]},
     "ssd_train": {
         "ssd_chunk_state_launch": [_CI] + [_VP] * 6 + _SIZES + [_I64, _CI],
         "ssd_state_pass_launch": [_VP] * 4 + _SIZES + [_CI],
@@ -322,12 +282,10 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 def _library(name: str = "ssd_train") -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, its launchers typed. The
-    first use builds what its path needs at once: the chunk scan's all
-    three sources, the training path's ``ssd_train`` and ``ssd_grad``."""
+    first use builds both sources at once, in parallel."""
     lib = _LIBS.get(name)
     if lib is None:
-        build(tuple(_SIGNATURES) if name == "ssd_scan"
-              else ("ssd_train", "ssd_grad"))
+        build(tuple(_SIGNATURES))
         lib = load_library(name)
         for fn_name, args in _SIGNATURES[name].items():
             fn = getattr(lib, fn_name)
@@ -409,25 +367,39 @@ def _decay(cum: torch.Tensor, cs: int) -> torch.Tensor:
     return torch.where(tril, torch.exp(torch.where(tril, diff, 0.0)), 0.0)
 
 
-def chunk_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
-                     C: torch.Tensor, cum: torch.Tensor, h_in: torch.Tensor,
+def scores_plain(B: torch.Tensor, C: torch.Tensor, cs: int) -> torch.Tensor:
+    """The plain version of :func:`scores`, on any device: every ``C_i .
+    B_j`` of the chunk, the upper triangle included."""
+    return torch.matmul(_by_chunk(C, cs), _by_chunk(B, cs).transpose(-1, -2))
+
+
+def train_scan_plain(x: torch.Tensor, dt: torch.Tensor, C: torch.Tensor,
+                     cum: torch.Tensor, h_in: torch.Tensor, sc: torch.Tensor,
                      cs: int) -> torch.Tensor:
-    """The plain version of :func:`chunk_scan`, on any device. The decay
+    """The plain version of :func:`train_scan`, on any device. The decay
     is masked before its exp, as the kernel's."""
     Bz, S, H, P = x.shape
     cum = cum.to(_acc(cum)).reshape(Bz, H, S // cs, cs)
-    Cc = _by_chunk(C, cs, H)
-    y = torch.matmul(torch.matmul(Cc, _by_chunk(B, cs, H).transpose(-1, -2))
-                     * _decay(cum, cs), _xdt(x, dt, cs))
-    y = y + torch.exp(cum)[..., None] * torch.matmul(Cc, h_in.to(_acc(h_in)))
+    sc = torch.repeat_interleave(sc.to(_acc(sc)), H // C.shape[2], dim=1)
+    y = torch.matmul(sc * _decay(cum, cs), _xdt(x, dt, cs))
+    y = y + torch.exp(cum)[..., None] * torch.matmul(_by_chunk(C, cs, H),
+                                                     h_in.to(_acc(h_in)))
     return _from_chunks(y).to(x.dtype)
+
+
+def chunk_scan_plain(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                     C: torch.Tensor, cum: torch.Tensor, h_in: torch.Tensor,
+                     cs: int) -> torch.Tensor:
+    """y from cum and h_in, in plain PyTorch on any device: the scores,
+    then :func:`train_scan_plain`."""
+    return train_scan_plain(x, dt, C, cum, h_in, scores_plain(B, C, cs), cs)
 
 
 def ssd_scan_plain(x: torch.Tensor, da: torch.Tensor, dt: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`ssd_scan`, on any device: the
-    three plain steps in order."""
+    plain steps in order."""
     _check(x, da, dt, B, C)
     cs = chunk_size(x.shape[1], chunk)
     states, cum = chunk_state_plain(x, da, dt, B, cs)
@@ -507,41 +479,27 @@ def ssd_backward_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             grouped(dC), g)
 
 
-def _forward(x, dt, A, B, C, init, cs):
-    """(y, final state, cum, h_in, scores) of the scan, kernel layouts:
-    :data:`TRAIN_PARTS` on the card (scores ``[Bz, G, S/cs, cs, cs]``, C
-    B^T of each chunk and group), the plain versions elsewhere (scores
-    None)."""
-    wd = _acc(dt, A)
-    da = dt.to(wd) * A.to(wd)[None, None, :]
-    if not _card(x, dt, A, B, C):
-        states, cum = chunk_state_plain(x, da, dt, B, cs)
-        h_in, final = state_pass_plain(states, cum, cs, init)
-        return (chunk_scan_plain(x, dt, B, C, cum, h_in, cs), final, cum,
-                h_in, None)
-    if x.dtype not in DTYPES:
-        raise TypeError(f"ssd_train takes float32, bfloat16 or float16 x, "
-                        f"got {x.dtype}")
-    Bz, S, H, P = x.shape
-    G, N = B.shape[2], B.shape[3]
-    lib = _library()
-    x = x.contiguous()
-    da, dt, B, C = _f32(da, dt, B, C)
-    scores = torch.empty((Bz, G, S // cs, cs, cs), dtype=torch.float32,
-                         device=x.device)
-    _raise_on(lib.ssd_scores_launch(B.data_ptr(), C.data_ptr(),
-                                    scores.data_ptr(), Bz, S, N, cs, G,
-                                    _stream(x)), "ssd_scores")
-    _launched("ssd_scores")
+def _forward(x, da, dt, B, C, init, cs):
+    """(y, final state, cum, h_in, scores) of the scan from x, da = dt A,
+    dt, B and C per group and the initial state ``init`` ``[Bz, H, N, P]``
+    (or None for zero), in the kernels' layouts: :data:`PARTS` on the card,
+    one launch each, the plain versions elsewhere. :func:`ssd_scan`
+    returns the first two; ``_SsdTrain`` saves the rest for the
+    backward."""
+    if _card(x, da, dt, B, C):
+        if x.dtype not in DTYPES:
+            raise TypeError(f"ssd_scan takes float32, bfloat16 or float16 x, "
+                            f"got {x.dtype}")
+        need = max(smem_bytes(cs).values())
+        if need > MAX_SMEM:
+            raise ValueError(f"ssd_scan: chunk {cs} needs {need} bytes of "
+                             f"shared memory, above {MAX_SMEM}")
+        x = x.contiguous()
+        da, dt, B, C = _f32(da, dt, B, C)
+    sc = scores(B, C, cs)
     states, cum = chunk_state(x, da, dt, B, cs)
     h_in, final = state_pass(states, cum, cs, init)
-    y = torch.empty_like(x)
-    _raise_on(lib.ssd_train_scan_launch(
-        DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), C.data_ptr(),
-        cum.data_ptr(), h_in.data_ptr(), scores.data_ptr(), y.data_ptr(),
-        Bz, S, H, P, N, cs, G, _stream(x)), "ssd_train_scan")
-    _launched("ssd_train_scan")
-    return y, final, cum, h_in, scores
+    return train_scan(x, dt, C, cum, h_in, sc, cs), final, cum, h_in, sc
 
 
 def _backward(x, dt, A, B, C, cum, h_in, scores, dy, dfinal, cs):
@@ -615,12 +573,13 @@ def _backward(x, dt, A, B, C, cum, h_in, scores, dy, dfinal, cs):
 
 class _SsdTrain(torch.autograd.Function):
     """y and the final state of the scan (kernel layouts); saves x, dt, A,
-    B, C, cum, the chunk-start states and (on the card) the scores for the
-    backward."""
+    B, C, cum, the chunk-start states and the scores for the backward."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, init, cs):
-        y, final, cum, h_in, scores = _forward(x, dt, A, B, C, init, cs)
+        wd = _acc(dt, A)
+        da = dt.to(wd) * A.to(wd)[None, None, :]
+        y, final, cum, h_in, scores = _forward(x, da, dt, B, C, init, cs)
         ctx.save_for_backward(x, dt, A, B, C, cum, h_in, scores)
         ctx.cs = cs
         ctx.init_dtype = None if init is None else init.dtype
@@ -649,7 +608,7 @@ def ssd_train(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     the initial state ``[Bz, H, P, N]`` or None; S a multiple of
     ``chunk``. Returns y ``[Bz, S, H, P]`` in x's type and the final state
     ``[Bz, H, P, N]`` in float32. On the card the forward is
-    :data:`TRAIN_PARTS` (B and C per group, from the initial state) and
+    :data:`PARTS` (B and C per group, from the initial state) and
     the backward :data:`BWD_PARTS`, one launch each; on the CPU the plain
     versions and :func:`ssd_backward_plain`."""
     _check(x, dt, dt, B, C)

@@ -541,8 +541,6 @@ def _attention(lp, h, positions, cfg, rules, par, window, kv_shared):
     projections as the span "attention" (args ``window``: global or
     sliding, ``kv``: own or shared), its backward bracketed. Returns
     (out, (k, v))."""
-    if kv_shared is not None:
-        spans.count("kv_shared_layers")
     args = {"window": "sliding" if window else "global",
             "kv": "own" if kv_shared is None else "shared"}
     return _attn_forward(

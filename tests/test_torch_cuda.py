@@ -467,18 +467,16 @@ def test_lm_kernel_launch_errors_raise(card):
     with pytest.raises(ValueError, match="multiple of KV"):
         fa.flash_attention(x, x[:, :2], x[:, :2])
     assert fa.launch_count == before
-    lib, scan, p = ss._library(), ss._library("ssd_scan"), x.data_ptr()
+    lib, p = ss._library(), x.data_ptr()
     grad = ss._library("ssd_grad")
-    # S not a multiple of cs, for each of the three kernels, and for the
-    # training kernels; G not dividing H
+    # S not a multiple of cs, for each of the forward's four kernels and
+    # the backward's; G not dividing H
     assert lib.ssd_chunk_state_launch(0, p, p, p, p, p, p, 1, 100, 1, 4, 4,
                                       32, 1, 0, stream) != 0
     assert lib.ssd_chunk_state_launch(0, p, p, p, p, p, p, 1, 96, 3, 4, 4,
                                       32, 2, 0, stream) != 0
     assert lib.ssd_state_pass_launch(p, p, p, None, 1, 100, 1, 4, 4, 32, 0,
                                      stream) != 0
-    assert scan.ssd_chunk_scan_launch(0, p, p, p, p, p, p, p, 1, 100, 1, 4,
-                                      4, 32, 1, stream) != 0
     assert lib.ssd_scores_launch(p, p, p, 1, 100, 4, 32, 1, stream) != 0
     assert lib.ssd_train_scan_launch(0, p, p, p, p, p, p, p, 1, 100, 1, 4, 4,
                                      32, 1, stream) != 0
@@ -490,14 +488,13 @@ def test_lm_kernel_launch_errors_raise(card):
                                    100, 1, 4, 4, 32, 1, stream) != 0
     assert grad.ssd_bwd_dcum_launch(p, p, p, p, p, p, p, p, p, p, p, p, 1,
                                     100, 1, 4, 4, 32, stream) != 0
-    # a chunk whose per-step vectors pass 227 KB (cs 32768); N 656 is
-    # taken (the chunk scan streams C)
-    assert max(ss.smem_bytes(656, 32768).values()) > ss.MAX_SMEM
-    assert ss.streams_c(656, 256)
+    # a chunk whose per-step vectors pass 227 KB (cs 32768), for the
+    # chunk states and y
+    assert max(ss.smem_bytes(32768).values()) > ss.MAX_SMEM
     assert lib.ssd_chunk_state_launch(0, p, p, p, p, p, p, 1, 32768, 1, 4,
                                       4, 32768, 1, 0, stream) != 0
-    assert scan.ssd_chunk_scan_launch(0, p, p, p, p, p, p, p, 1, 32768, 1, 4,
-                                      656, 32768, 1, stream) != 0
+    assert lib.ssd_train_scan_launch(0, p, p, p, p, p, p, p, 1, 32768, 1, 4,
+                                     656, 32768, 1, stream) != 0
     big = torch.zeros((1, 32768, 1, 4), device=card)
     dt = torch.zeros((1, 32768, 1), device=card)
     before = ss.launch_count
@@ -554,7 +551,7 @@ def test_verify_on_the_card(card):
                          ids=lambda s: "-".join(f"{k}{v}"
                                                 for k, v in s.items()))
 def test_ssd_kernels_equal_their_plain_versions(card, shape, dtype):
-    """Each of the three SSD kernels alone, one launch each, against its
+    """Each of the four SSD kernels alone, one launch each, against its
     plain version on the same CUDA tensors."""
     from repro_torch.kernels import ssd_scan as ss
     before = dict(ss.part_launches)

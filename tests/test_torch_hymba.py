@@ -334,7 +334,7 @@ def test_the_engine_serves_the_full_forwards_tokens():
 
 
 # ---------------------------------------------------------------------------
-# the counter of shared K/V
+# train steps with shared K/V, spans on
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("remat", ["none", "block"])
@@ -348,9 +348,12 @@ def test_shared_kv_is_counted_once_a_layer_a_forward(remat):
     with spans.activate(obs):
         for seed in (0, 1):
             step(params, adamw_init(params, opt), batch(cfg, seed))
-    reused = sum(len(g) - 1 for g in cfg.kv_groups)
-    snap = obs.metrics.snapshot()["counters"]
-    assert snap["train.kv_shared_layers"] == 2 * reused == 2
+    assert sum(len(g) - 1 for g in cfg.kv_groups) == 1
+    # the attention span's forward phase once a layer a step, the
+    # recompute of remat apart
+    got = spans.collected(obs)
+    assert got["steps"] == 2
+    assert got["spans"]["attention/forward"]["count"] == 2 * cfg.num_layers
     full = get_spec("hymba-1.5b").model
     assert sum(len(g) - 1 for g in full.kv_groups) == 15
     spans.reset()

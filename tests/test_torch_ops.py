@@ -141,8 +141,9 @@ def test_roofline_terms():
 
 def test_roofline_terms_of_attention_and_the_ssd_scan():
     """Attention counts its two products over the visible pairs at the
-    bf16 tensor-core rate; the SSD scan its four float32 products, the
-    two cs x cs ones over j <= i, at the FP32 rate."""
+    bf16 tensor-core rate; the SSD scan its float32 products at the FP32
+    rate: C B^T once per group and y's over j <= i, the chunk state and
+    C h per head; it reads B and C per group."""
     by = {w.name: micro.bound(*micro.cost(w)) for w in micro.CARD}
     llama = by["attn_llama3.2-1b_causal_4096"]
     assert llama["ops"] == 4 * 2 * 32 * (4096 * 4097 // 2) * 64
@@ -154,10 +155,11 @@ def test_roofline_terms_of_attention_and_the_ssd_scan():
     mixtral = by["attn_mixtral_prefill_cont"]
     assert mixtral["ops"] == 4 * 32 * sum(range(3585, 4097)) * 128
     ssd = by["ssd_mamba2-1.3b_4096"]
-    per_chunk = 2 * (256 * 257 // 2) * (128 + 64) + 4 * 256 * 128 * 64
-    assert ssd["ops"] == 2 * 64 * 16 * per_chunk
-    assert ssd["bytes"] == 2 * 4096 * 64 * (2 * 64 * 4 + 8 + 2 * 128 * 4) \
-        + 2 * 64 * 128 * 64 * 4
+    tri = 256 * 257 // 2
+    assert ssd["ops"] == 2 * 16 * (2 * tri * 128 + 64 * (
+        2 * tri * 64 + 4 * 256 * 128 * 64))
+    assert ssd["bytes"] == 2 * 4096 * 64 * (2 * 64 * 4 + 8) \
+        + 2 * 4096 * 2 * 128 * 4 + 2 * 64 * 128 * 64 * 4
     assert ssd["bound_by"] == "operations"
     np.testing.assert_allclose(ssd["bound_ms"], ssd["ops"] / 67e12 * 1e3)
 
@@ -303,14 +305,14 @@ def test_chip_smoke_lm_phase_rehearsed_on_the_cpu(capsys):
     assert {k for k, _, _ in smoke.KERNELS} == set(micro.MODULES) | {
         "fused_vops", "kdotp"}
     assert len(smoke.KERNELS) == 8
-    # the JSON lists the SSD scan as its three kernels, each with the
+    # the JSON lists the SSD scan as its four kernels, each with the
     # scan's source and TPU kernel
     from repro_torch.kernels import ssd_scan as ss
     rows = smoke.json_rows(ss.PARTS)
     assert [n for n, _, _ in rows] == [k for k, _, _ in smoke.KERNELS
                                        if k != "ssd_scan"] + list(ss.PARTS)
     assert {(src, rep) for n, src, rep in rows if n in ss.PARTS} == {
-        ("src/repro_torch/csrc/ssd_scan.cu",
+        ("src/repro_torch/csrc/ssd_train.cu",
          "src/repro/kernels/ssd_scan.py:24")}
     assert set(smoke.SLICE2) | set(smoke.SLICE3) == set(micro.MODULES)
     assert {w.kernel for w in micro.CARD} == set(micro.MODULES)

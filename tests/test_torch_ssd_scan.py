@@ -153,24 +153,19 @@ def test_sequence_not_a_multiple_of_the_chunk_raises():
 
 
 def test_shared_memory_of_the_mamba2_row():
-    """The kernels' shared memory at the mamba2-1.3b row (N 128, P 64,
-    chunk 256): each at most 110 KB, so two blocks fit an SM's 228 KB.
-    P takes none (it is tiled in the grid), so N 256 with P 128 fits
-    too; the chunk scan's 64 x N tile of C would reach a block's 227 KB
-    past N 608, so from N 609 the scan streams C and its shared memory
-    stops growing with N."""
-    row = ss.smem_bytes(128, 256)
-    assert row == {"ssd_chunk_state": 37888, "ssd_state_pass": 0,
-                   "ssd_chunk_scan": 97792}
+    """The kernels' shared memory at the mamba2-1.3b row (chunk 256): each
+    at most 110 KB, so two blocks fit an SM's 228 KB. N and P take none
+    (they are tiled in the grid), so any state width runs; the chunk
+    state's per-step vectors set the chunk's limit, 16469 steps."""
+    row = ss.smem_bytes(256)
+    assert row == {"ssd_scores": 34816, "ssd_chunk_state": 37888,
+                   "ssd_state_pass": 0, "ssd_train_scan": 36864}
+    assert set(row) == set(ss.PARTS)
     assert 2 * max(row.values()) <= 228 * 1024
-    assert max(ss.smem_bytes(256, 256).values()) <= ss.MAX_SMEM
-    assert not ss.streams_c(608, 256) and ss.streams_c(609, 256)
-    assert max(ss.smem_bytes(608, 256).values()) <= ss.MAX_SMEM
-    wide = [ss.smem_bytes(n, 256) for n in (609, 1024, 1 << 16)]
-    assert wide[0] == wide[1] == wide[2]
-    assert wide[0]["ssd_chunk_scan"] == 4 * (6 * 32 * 68 + 2 * 64 * 68
-                                             + 2 * 256)
-    assert ss.smem_bytes(128, 64)["ssd_chunk_state"] < row["ssd_chunk_state"]
+    assert ss.smem_bytes(64)["ssd_chunk_state"] < row["ssd_chunk_state"]
+    assert max(ss.smem_bytes(16469).values()) <= ss.MAX_SMEM
+    assert ss.smem_bytes(16470)["ssd_chunk_state"] > ss.MAX_SMEM
+    assert ss.smem_bytes(16470)["ssd_train_scan"] <= ss.MAX_SMEM
 
 
 @pytest.mark.parametrize("S,chunk", [(64, 64), (160, 32)],
@@ -183,15 +178,16 @@ def test_three_plain_steps_vs_the_reference(S, chunk):
     args = _inputs(np.random.default_rng(S + 9), Bz, S, H, P, N, G)
     y_p, s_p = jops.ssd_scan_op(*args, chunk=chunk, interpret=True)
     y_m, s_m = jssm.ssd_chunked(*args, chunk=chunk)
-    x, da, dt, Bh, Ch = ss.kernel_inputs(*_port(args))
+    x, dt, A, Bm, Cm = _port(args)
+    da = dt * A[None, None]
     cs = ss.chunk_size(S, chunk)
-    states, cum = ss.chunk_state_plain(x, da, dt, Bh, cs)
+    states, cum = ss.chunk_state_plain(x, da, dt, Bm, cs)
     assert tuple(states.shape) == (Bz, H, S // cs, N, P)
     assert tuple(cum.shape) == (Bz, H, S)
     h_in, state = ss.state_pass_plain(states, cum, cs)
     assert h_in is states and torch.all(h_in[:, :, 0] == 0)
-    y = ss.chunk_scan_plain(x, dt, Bh, Ch, cum, h_in, cs)
-    for got_y, got_s in ((y, state), ss.ssd_scan(x, da, dt, Bh, Ch,
+    y = ss.chunk_scan_plain(x, dt, Bm, Cm, cum, h_in, cs)
+    for got_y, got_s in ((y, state), ss.ssd_scan(x, da, dt, Bm, Cm,
                                                   chunk=chunk)):
         _close(got_y, y_p)
         _close(got_s, s_p)
@@ -200,41 +196,44 @@ def test_three_plain_steps_vs_the_reference(S, chunk):
 
 
 def test_kernel_wrappers_on_cpu_run_their_plain_versions():
-    """On CPU tensors each of the three wrappers is its plain version and
+    """On CPU tensors each of the four wrappers is its plain version and
     counts no launch."""
-    x, da, dt, Bh, Ch = ss.kernel_inputs(*_port(_inputs(
-        np.random.default_rng(10), 1, 96, 2, 8, 6, 1, jnp.bfloat16)))
+    x, dt, A, Bm, Cm = _port(_inputs(np.random.default_rng(10), 1, 96, 2, 8,
+                                     6, 1, jnp.bfloat16))
+    da = dt * A[None, None]
     before = (ss.launch_count, dict(ss.part_launches))
-    states, cum = ss.chunk_state(x, da, dt, Bh, 32)
-    want_states, want_cum = ss.chunk_state_plain(x, da, dt, Bh, 32)
+    sc = ss.scores(Bm, Cm, 32)
+    assert tuple(sc.shape) == (1, 1, 3, 32, 32)
+    assert torch.equal(sc, ss.scores_plain(Bm, Cm, 32))
+    states, cum = ss.chunk_state(x, da, dt, Bm, 32)
+    want_states, want_cum = ss.chunk_state_plain(x, da, dt, Bm, 32)
     assert torch.equal(states, want_states) and torch.equal(cum, want_cum)
     h_in, state = ss.state_pass(states.clone(), cum, 32)
     want_h, want_state = ss.state_pass_plain(states.clone(), cum, 32)
     assert torch.equal(h_in, want_h) and torch.equal(state, want_state)
-    y = ss.chunk_scan(x, dt, Bh, Ch, cum, h_in, 32)
+    y = ss.train_scan(x, dt, Cm, cum, h_in, sc, 32)
     assert y.dtype == torch.bfloat16
-    assert torch.equal(y, ss.chunk_scan_plain(x, dt, Bh, Ch, cum, h_in, 32))
+    assert torch.equal(y, ss.train_scan_plain(x, dt, Cm, cum, h_in, sc, 32))
+    assert torch.equal(y, ss.chunk_scan_plain(x, dt, Bm, Cm, cum, h_in, 32))
     assert (ss.launch_count, ss.part_launches) == before
-    assert ss.LAUNCHES_PER_CALL == len(ss.PARTS) == 3
+    assert ss.LAUNCHES_PER_CALL == len(ss.PARTS) == 4
 
 
-@pytest.mark.parametrize("Bz,H,S,P,cs", [(2, 3, 256, 64, 256),
-                                         (1, 2, 144, 24, 48),
-                                         (2, 2, 192, 130, 96),
-                                         (1, 1, 16, 8, 16)])
-def test_chunk_scan_blocks_run_longest_first(Bz, H, S, P, cs):
-    """The chunk scan's block order (``scan_block_order``, the kernel's
-    decoding of blockIdx.x): every (row tile, b, h, chunk, P tile)
-    exactly once, and a block never does more column tiles than one
-    before it (row tile i does i + 1)."""
-    order = ss.scan_block_order(Bz, H, S, P, cs)
-    ntile, npt = -(-cs // ss.TILE), -(-P // ss.TILE)
-    assert sorted(order) == sorted(
-        (it, b, h, c, pt) for it in range(ntile) for b in range(Bz)
-        for h in range(H) for c in range(S // cs) for pt in range(npt))
-    work = [it + 1 for it, *_ in order]
-    assert work == sorted(work, reverse=True)
-    assert work[0] == ntile
+@pytest.mark.parametrize("Bz,S,H,P,N,G,chunk", [
+    (2, 128, 4, 16, 8, 1, 32), (1, 96, 6, 8, 5, 2, 32),
+    (2, 64, 3, 12, 4, 3, 16), (1, 48, 2, 24, 40, 1, 48)],
+    ids=["G1", "G2_of_6", "G_eq_H", "S_eq_chunk"])
+def test_op_equals_the_training_forward(Bz, S, H, P, N, G, chunk):
+    """The op and the training scan share one forward: on the CPU in
+    float32, ``ssd_scan(x, dt A, dt, B, C)`` gives ``ssd_train``'s y and
+    final state bit for bit, B and C per group."""
+    x, dt, A, Bm, Cm = _port(_inputs(np.random.default_rng(S + G), Bz, S, H,
+                                     P, N, G))
+    y, state = ss.ssd_scan(x, dt * A[None, None, :], dt, Bm, Cm, chunk=chunk)
+    y_t, final = ss.ssd_train(x, dt, A, Bm, Cm, chunk=chunk)
+    assert y.dtype == y_t.dtype == torch.float32
+    assert torch.equal(y, y_t)
+    assert torch.equal(state, final.transpose(-1, -2))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -248,17 +247,18 @@ def test_part_checks_rehearsed_on_the_cpu(dtype):
 
 
 def test_kernel_costs_split_the_function():
-    """The chunk states and the chunk scan split the function's products
-    (``micro.cost``); the scan over chunks moves the workspace twice.
-    The training launches (``ssd_train``) are costed beside them."""
+    """The scores, the chunk states and y split the function's products
+    (``micro.cost``); the scan over chunks moves the workspace twice. The
+    backward's launches (``ssd_train``) are costed beside them."""
     w = next(w for w in micro.CARD if w.name == "ssd_mamba2-1.3b_4096")
     parts = micro.ssd_part_costs(w.shape)
-    assert set(parts) == set(ss.PARTS + ss.TRAIN_PARTS + ss.BWD_PARTS)
+    assert set(parts) == set(ss.PARTS + ss.BWD_PARTS)
     nbytes, ops_terms = micro.cost(w)
-    assert parts["ssd_chunk_state"][1][0][0] + \
-        parts["ssd_chunk_scan"][1][0][0] == ops_terms[0][0]
+    assert sum(parts[k][1][0][0] for k in ("ssd_scores", "ssd_chunk_state",
+                                           "ssd_train_scan")) == \
+        ops_terms[0][0]
     states = 2 * 64 * 16 * 128 * 64 * 4
     assert parts["ssd_state_pass"][0] == 2 * states + 2 * 64 * 16 * 4 \
         + 2 * 64 * 128 * 64 * 4
     assert micro.bound(*parts["ssd_state_pass"])["bound_by"] == "bytes"
-    assert micro.bound(*parts["ssd_chunk_scan"])["bound_by"] == "operations"
+    assert micro.bound(*parts["ssd_train_scan"])["bound_by"] == "operations"

@@ -79,8 +79,9 @@ def test_backward_plain_equals_autograd_of_the_plain_forward(case, init,
     pad = -S % cs
 
     def padded(x, dt, A, B, C, chunk, initial_state):
+        dt = F.pad(dt, (0, 0, 0, pad))
         y, f, *_ = ss._forward(
-            F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), A,
+            F.pad(x, (0, 0, 0, 0, 0, pad)), dt * A[None, None, :], dt,
             F.pad(B, (0, 0, 0, 0, 0, pad)), F.pad(C, (0, 0, 0, 0, 0, pad)),
             None if initial_state is None
             else initial_state.transpose(-1, -2), chunk)
@@ -197,17 +198,19 @@ def test_function_on_cpu_runs_the_plain_versions():
 
 @pytest.mark.parametrize("G", [64, 1])
 def test_train_costs(G):
-    """The training launches' operations (``micro.ssd_part_costs``): with
-    a group a head, the scores and y split the three-kernel scan's chunk
-    scan; with one group the scores are the heads' share, and the
-    backward's Cbar and Bbar products (Shat's once a group) likewise."""
+    """The training launches' operations (``micro.ssd_part_costs``): the
+    scores, the chunk states and y split the op's products
+    (``micro.cost``) at any G; with one group the scores are the heads'
+    share, and the backward's Cbar and Bbar products (Shat's once a
+    group) likewise."""
     from repro_torch.kernels import micro
     shape = dict(micro.SSD_TRAIN_CELL, G=G)
     c = {k: v[1][0][0] for k, v in micro.ssd_part_costs(shape).items()}
-    assert set(c) == set(ss.PARTS + ss.TRAIN_PARTS + ss.BWD_PARTS)
+    assert set(c) == set(ss.PARTS + ss.BWD_PARTS)
     chunks, tri = 8 * 64 * 16, 256 * 257 // 2
-    if G == 64:
-        assert c["ssd_scores"] + c["ssd_train_scan"] == c["ssd_chunk_scan"]
+    op = micro.cost(micro.Workload("cell", "ssd_scan", shape, ""))
+    assert c["ssd_scores"] + c["ssd_chunk_state"] + c["ssd_train_scan"] == \
+        op[1][0][0]
     assert c["ssd_scores"] == 8 * G * 16 * 2 * tri * 128
     assert c["ssd_train_scan"] == c["ssd_bwd_dx"] == chunks * (
         2 * tri * 64 + 2 * 256 * 128 * 64)
@@ -264,8 +267,8 @@ def test_train_kernels_equal_the_plain_version(card, shape, dtype):
     torch.cuda.synchronize()
     assert set(err) == set(checks.SSD_TRAIN_OUTPUTS)
     assert {k: ss.part_launches[k] - before[k]
-            for k in ss.TRAIN_PARTS + ss.BWD_PARTS} == dict.fromkeys(
-                ss.TRAIN_PARTS + ss.BWD_PARTS, 1)
+            for k in ss.PARTS + ss.BWD_PARTS} == dict.fromkeys(
+                ss.PARTS + ss.BWD_PARTS, 1)
 
 
 @pytest.mark.cuda
@@ -309,6 +312,6 @@ def test_remat_train_step_launches_each_part(card):
     assert np.isfinite(float(met["loss"]))
     L = cfg.num_layers
     got = {k: ss.part_launches[k] - before[k]
-           for k in ss.TRAIN_PARTS + ss.BWD_PARTS}
-    assert got == {**dict.fromkeys(ss.TRAIN_PARTS, 2 * L),
+           for k in ss.PARTS + ss.BWD_PARTS}
+    assert got == {**dict.fromkeys(ss.PARTS, 2 * L),
                    **dict.fromkeys(ss.BWD_PARTS, L)}
